@@ -1,0 +1,50 @@
+"""Global configuration of the PyTorch port.
+
+The counterpart of ``petal_decomposition_tpu/config.py``, reduced to
+the fields the randomized-PCA fit reads:
+
+* ``linalg_backend``:
+    - ``"auto"``   — per-dtype dispatch: float64 uses the in-house Jacobi
+      SVD (the 1e-10 parity route on every device); float32 uses the
+      Jacobi kernel on CUDA and ``torch.linalg`` (LAPACK) on the CPU.
+    - ``"jacobi"`` — always use the in-house Jacobi SVD.
+    - ``"torch"``  — always use ``torch.linalg`` (the counterpart of the
+      JAX package's ``"xla"``).
+* ``matmul_precision``: the grade of every float32 matmul in the compute
+  path.  Only ``"highest"`` (IEEE float32, TF32 off) exists so far;
+  choosing TF32 or bf16 grades on Hopper is settled by measurement.
+* ``jacobi_max_sweeps`` / ``check_convergence``: the Jacobi sweep budget
+  and whether an unconverged certificate raises ``LinalgError``.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+__all__ = ["config", "Config"]
+
+
+@dataclass
+class Config:
+    linalg_backend: str = "auto"  # "auto" | "jacobi" | "torch"
+    matmul_precision: str = "highest"
+    # Max Jacobi sweeps before declaring non-convergence (LinalgError
+    # analogue of LAPACK info != 0; ref: linalg.rs:84).
+    jacobi_max_sweeps: int = 30
+    check_convergence: bool = True
+
+    def validate(self) -> None:
+        if self.linalg_backend not in ("auto", "jacobi", "torch"):
+            raise ValueError(f"unknown linalg backend: {self.linalg_backend}")
+        if self.matmul_precision != "highest":
+            raise ValueError(
+                f"unknown matmul precision: {self.matmul_precision} "
+                "(only 'highest', IEEE float32, is supported)"
+            )
+
+
+config = Config(
+    linalg_backend=os.environ.get("PETAL_LINALG_BACKEND", "auto"),
+)
+config.validate()

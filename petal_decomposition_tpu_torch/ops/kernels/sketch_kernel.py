@@ -1,0 +1,106 @@
+"""K1: the fused sketch + moments pass, ``(X·W, Σᵢ X[i,:], ‖X‖²_F)`` in
+one read of X.
+
+The port of ``petal_decomposition_tpu/ops/pallas/sketch_kernel.py``
+(``fused_sketch_moments``).  On a CUDA tensor the wrapper launches the
+hand-written Hopper kernel ``csrc/sketch_moments.cu``; on a CPU tensor
+it runs :func:`_sketch_moments_plain` (matmul + sum + sum of squares).
+``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["fused_sketch_moments", "supports", "build", "launches"]
+
+# Blocks per SM of the grid-stride launch (register-bound occupancy of
+# the 256-thread block).
+_BLOCKS_PER_SM = 4
+# Smallest row count the fused pass is used for, as in the JAX package
+# (four of its 1024-row blocks): below it the saved pass is noise.
+_MIN_ROWS = 4096
+
+launches = 0
+
+
+def supports(n: int, d: int, l: int, dtype) -> bool:
+    """True when the fused pass takes the problem: float32 data, a
+    sketch 1..512 wide, and at least 4096 rows."""
+    return dtype == torch.float32 and 1 <= l <= 512 and d >= 1 and (
+        n >= _MIN_ROWS
+    )
+
+
+def build() -> ctypes.CDLL:
+    """Compile (at first use) and load the kernel library."""
+    lib = _build.load_library("petal_sketch_moments", ("sketch_moments.cu",))
+    fn = lib.petal_sketch_moments_f32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.petal_sketch_rows_per_strip.restype = ctypes.c_int
+    return lib
+
+
+def _sketch_moments_plain(x: torch.Tensor, w: torch.Tensor):
+    """``(x @ w, x.sum(0), (x * x).sum())`` in IEEE float32."""
+    from ..linalg import mdot
+
+    return mdot(x, w), x.sum(0), (x * x).sum()
+
+
+def fused_sketch_moments(x: torch.Tensor, w: torch.Tensor):
+    """``(Y, colsum, sqnorm)`` in one pass over ``x``: ``Y = x @ w`` in
+    float32 FMA, ``colsum`` (d,) and the 0-d ``sqnorm`` summed in float64
+    and rounded to float32.  ``x`` is (n, d) and ``w`` (d, l), both
+    contiguous float32 on one device; callers gate on :func:`supports`.
+
+    CUDA tensors launch the kernel (and raise if it cannot be built or
+    launched); CPU tensors run :func:`_sketch_moments_plain`.
+    """
+    global launches
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(
+            f"shapes {tuple(x.shape)} and {tuple(w.shape)} do not chain"
+        )
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError("fused_sketch_moments takes float32 operands")
+    if x.device != w.device:
+        raise ValueError(f"x on {x.device} but w on {w.device}")
+    n, d = x.shape
+    l = w.shape[1]
+    if not supports(n, d, l, x.dtype):
+        raise ValueError(f"unsupported problem n={n} d={d} l={l}")
+    if x.device.type == "cpu":
+        return _sketch_moments_plain(x, w)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("fused_sketch_moments takes contiguous operands")
+    lib = build()
+    rows = lib.petal_sketch_rows_per_strip()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = min(-(-n // rows), sms * _BLOCKS_PER_SM)
+    dev = x.device
+    y = torch.empty((n, l), dtype=torch.float32, device=dev)
+    colsum = torch.empty((d,), dtype=torch.float32, device=dev)
+    sqnorm = torch.empty((1,), dtype=torch.float32, device=dev)
+    cs_part = torch.empty((grid, d), dtype=torch.float64, device=dev)
+    sq_part = torch.empty((grid,), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.petal_sketch_moments_f32(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), cs_part.data_ptr(),
+            sq_part.data_ptr(), colsum.data_ptr(), sqnorm.data_ptr(),
+            n, d, l, grid, stream,
+        )
+    _build.check(lib, status, "sketch_moments kernel launch")
+    launches += 1
+    return y, colsum, sqnorm[0]
