@@ -3,27 +3,46 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``petal_decomposition_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the shapes of the main
-path, then drives the main path — ``RandomizedPca.fit`` on an in-core
-1,000,000 × 1024 float32 matrix, k = 32, through the route that runs the
-kernels — and checks its singular values against a float64
-eigendecomposition.  Every phase prints one JSON line; any failed check
-raises, so the exit code is non-zero.  The last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-package beside it, the script fails before printing any result.
+Builds the hand-written kernels from ``petal_decomposition_tpu_torch/csrc``
+(one ``nvcc`` per source, all at once), holds each against its plain
+PyTorch version at the shapes of the main paths, and drives those paths
+through the entry points a user calls:
+
+* ``RandomizedPca.fit`` on an in-core 1,000,000 × 1024 float32 matrix,
+  k = 32, through the route that runs K1 and K2, and through the
+  default constructor;
+* exact ``Pca`` on a 200,000 × 256 float64 feature table, k = 32,
+  through QR + K3 on R and through the Gram solver with K3 as its
+  eigensolver; BASELINE config 1 (1000 × 64 float64, direct K3); a
+  1,000,000 × 64 float32 fit through QR + K2 on R;
+* ``RandomizedPca`` at BASELINE config 2 (100,000 × 1024 float64,
+  k = 32, default knobs), whose SVD of Bᵀ is K3.
+
+Each path is driven with the kernels' launch counts set to 0 just before
+it and read just after.  Every phase prints one JSON line with its
+numbers and its time; any failed check raises, so the exit code is
+non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without
+a CUDA device, or without the package beside it, the script fails before
+printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 N, D, K, SEED = 1_000_000, 1024, 32, 20261016
 L = K + 10  # the fit's sketch width (k + n_oversamples)
+N64, D64 = 200_000, 256  # the exact float64 fit's feature table
+NR, DR = 100_000, 1024  # BASELINE config 2, the float64 randomized fit
+N32, D32 = 1_000_000, 64  # the exact float32 fit
+CUDA = "cuda"
 
 
 def emit(obj) -> None:
@@ -53,19 +72,23 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def make_data(dev):
+def make_data(dev, n=N, d=D, dtype=None, seed=SEED):
     """Low rank plus noise with a non-zero mean: σⱼ ∝ 3·0.9ʲ over 32
     directions above a flat noise floor; mean small enough that the
     fused centering needs no guard pass."""
     import torch
 
+    dtype = dtype or torch.float32
     g = torch.Generator(device=dev)
-    g.manual_seed(SEED)
-    basis = torch.linalg.qr(torch.randn(D, K, generator=g, device=dev)).Q.T
-    scale = 3.0 * 0.9 ** torch.arange(K, device=dev, dtype=torch.float32)
-    x = 0.05 * torch.randn(N, D, generator=g, device=dev)
-    x += (torch.randn(N, K, generator=g, device=dev) * scale) @ basis
-    x += 0.1 * torch.randn(D, generator=g, device=dev)
+    g.manual_seed(seed)
+    basis = torch.linalg.qr(
+        torch.randn(d, K, generator=g, device=dev, dtype=dtype)
+    ).Q.T
+    scale = 3.0 * 0.9 ** torch.arange(K, device=dev, dtype=dtype)
+    x = 0.05 * torch.randn(n, d, generator=g, device=dev, dtype=dtype)
+    x += (torch.randn(n, K, generator=g, device=dev, dtype=dtype)
+          * scale) @ basis
+    x += 0.1 * torch.randn(d, generator=g, device=dev, dtype=dtype)
     return x
 
 
@@ -85,43 +108,124 @@ def f64_moments(x, rows: int = 1 << 16):
     return cs, sq, gram
 
 
-def main() -> int:
+def sigma_of_centered_gram(x, k=K):
+    """Top-k σ of X − 1μᵀ from its float64 Gram."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    from petal_decomposition_tpu_torch import (
-        RandomizedPca,
-        RandomizedPcaBuilder,
-    )
-    from petal_decomposition_tpu_torch.ops.kernels import (
-        jacobi_kernels as k2,
-        sketch_kernel as k1,
-    )
+    cs, _, gram = f64_moments(x)
+    mu = cs / x.shape[0]
+    gc = gram - x.shape[0] * torch.outer(mu, mu)
+    return torch.linalg.eigvalsh(gc).flip(0)[:k].clamp(min=0).sqrt()
 
-    dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    t0 = time.perf_counter()
-    k1.build()
-    k2.build()
-    build_s = time.perf_counter() - t0
-    emit({"phase": "device", "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0], "kernel_build_s": build_s})
 
-    # -- K1 against its plain version, at the flagship shapes ----------
-    x = make_data(dev)
-    g = torch.Generator(device=dev)
+@contextlib.contextmanager
+def capturing(module, name):
+    """Record a copy of the panel each call of ``module.name`` gets."""
+    real = getattr(module, name)
+    seen = []
+
+    def wrapper(a, **kw):
+        seen.append(a.clone())
+        return real(a, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def rel_max(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def timed_fits(make, x, kernels, reps=3):
+    """Fit ``make()`` on ``x`` ``reps`` times, each with every count in
+    ``kernels`` (name → module) set to 0 just before and read just
+    after: ``(fit ms list, launch totals, the last model)``."""
+    fit_ms, totals = [], {name: 0 for name in kernels}
+    for _ in range(reps):
+        model = make()
+        for mod in kernels.values():
+            mod.launches = 0
+        model.fit(x)
+        for name, mod in kernels.items():
+            require(mod.launches > 0, f"a fit launched no {name}")
+            totals[name] += mod.launches
+        fit_ms.append(model.last_fit_stats_.wall_time_s * 1e3)
+    return fit_ms, totals, model
+
+
+def check_jacobi(name, a, run, plain, tol, sig_band, rec_band, orth_band):
+    """A Jacobi kernel's factors of ``a`` against float64 ``svdvals``
+    and against its plain version: ``(report, max |Δσ| vs plain)``."""
+    import torch
+
+    m, n = a.shape
+    a_rot, v, off = run(a)
+    a_rot_p, _, _ = plain(a)
+    s = a_rot.norm(dim=0).sort(descending=True).values.double()
+    s_p = a_rot_p.norm(dim=0).sort(descending=True).values.double()
+    a64 = a.double()
+    s_ref = torch.linalg.svdvals(a64)
+    rec = float((a_rot.double() @ v.double().mT - a64).norm() / a64.norm())
+    orth = float((v.double().mT @ v.double() - torch.eye(
+        n, dtype=torch.float64, device=a.device)).abs().max())
+    sig = float((s - s_ref).abs().max() / s_ref[0])
+    sig_plain = float((s - s_p).abs().max() / s_ref[0])
+    require(sig <= sig_band, f"{name}: σ error {sig} > {sig_band}·σ₁")
+    require(sig_plain <= sig_band, f"{name}: σ vs plain {sig_plain}")
+    require(rec <= rec_band, f"{name}: reconstruction {rec} > {rec_band}")
+    require(orth <= orth_band, f"{name}: ‖VᵀV − I‖ {orth} > {orth_band}")
+    require(float(off) <= tol, f"{name}: off {float(off)} > {tol}")
+    report = {"shape": [m, n], "sigma_rel_err_f64": sig,
+              "sigma_rel_err_plain": sig_plain, "reconstruction": rec,
+              "orthogonality": orth, "off": float(off), "tol": tol}
+    return report, float((s - s_p).abs().max())
+
+
+def qr_route_stages(x, kernel):
+    """Device ms of an exact fit's stages on the QR route: centering,
+    Householder QR, the Jacobi kernel on R, and Q·R_rot."""
+    import torch
+
+    xc = x - x.mean(0)
+    q, r = torch.linalg.qr(xc)
+    r_rot, _, _ = kernel(r)
+    return {
+        "center": cuda_ms(lambda: x - x.mean(0), 5),
+        "qr": cuda_ms(lambda: torch.linalg.qr(xc), 5),
+        "kernel_on_r": cuda_ms(lambda: kernel(r), 5),
+        "q_times_r_rot": cuda_ms(lambda: q @ r_rot, 5),
+    }
+
+
+def phase(fn):
+    """Run a phase and print its JSON line with the phase's seconds."""
+    def run(ctx):
+        t0 = time.perf_counter()
+        out = fn(ctx)
+        out["phase_s"] = time.perf_counter() - t0
+        emit(out)
+    return run
+
+
+# -- the in-core float32 RandomizedPca slice: K1 and K2 ----------------
+
+@phase
+def phase_k1(ctx):
+    """K1 against its plain version, at the flagship shapes."""
+    import torch
+
+    k1, dev = ctx.k1, ctx.dev
+    ctx.x = x = make_data(dev)
+    ctx.g = g = torch.Generator(device=dev)
     g.manual_seed(SEED + 1)
     w = torch.randn(D, L, generator=g, device=dev)
     y, cs, sq = k1.fused_sketch_moments(x, w)
     yp, _, _ = k1._sketch_moments_plain(x, w)
-    cs64, sq64, gram64 = f64_moments(x)
+    cs64, sq64, ctx.gram64 = f64_moments(x)
+    ctx.cs64 = cs64
     y_err = float((y - yp).abs().max())
     y_band = 1e-4 * float(yp.abs().max())
     cs_dev = float(((cs.double() - cs64).abs()
@@ -130,48 +234,39 @@ def main() -> int:
     require(y_err <= y_band, f"K1 Y error {y_err} > {y_band}")
     require(cs_dev <= 0, "K1 colsum outside rtol 1e-4 / atol 1e-3 of f64")
     require(sq_rel <= 1e-5, f"K1 sqnorm relative error {sq_rel} > 1e-5")
-    k1_ms = cuda_ms(lambda: k1.fused_sketch_moments(x, w), 20)
-    k1_plain_ms = cuda_ms(lambda: k1._sketch_moments_plain(x, w), 20)
-    del y, yp
-    emit({"phase": "k1_vs_plain", "x": [N, D], "w": [D, L],
-          "y_max_abs_err": y_err, "y_band": y_band,
-          "sqnorm_rel_err": sq_rel, "ms": k1_ms, "plain_ms": k1_plain_ms})
+    ms = cuda_ms(lambda: k1.fused_sketch_moments(x, w), 20)
+    plain_ms = cuda_ms(lambda: k1._sketch_moments_plain(x, w), 20)
+    ctx.kernels["sketch_moments"].update(max_abs_err=y_err, ms=ms,
+                                         plain_ms=plain_ms)
+    return {"phase": "k1_vs_plain", "x": [N, D], "w": [D, L],
+            "y_max_abs_err": y_err, "y_band": y_band,
+            "sqnorm_rel_err": sq_rel, "ms": ms, "plain_ms": plain_ms}
 
-    # -- the slice: RandomizedPca.fit through K1 and K2 ----------------
+
+@phase
+def phase_slice(ctx):
+    """The slice: RandomizedPca.fit through K1 and K2."""
+    import torch
+
+    k1, k2, x = ctx.k1, ctx.k2, ctx.x
+
     def slice_model():
-        return (RandomizedPcaBuilder(K).seed(SEED).range_finder("gram")
-                .gram_projection("data").device("cuda").build())
+        return (ctx.api.RandomizedPcaBuilder(K).seed(SEED)
+                .range_finder("gram").gram_projection("data")
+                .device(CUDA).build())
 
-    panels = []
-    real_k2 = k2.jacobi_svd_vmem
-
-    def capture(a, **kw):
-        panels.append(a.clone())
-        return real_k2(a, **kw)
-
-    k2.jacobi_svd_vmem = capture
-    try:
+    with capturing(k2, "jacobi_svd_vmem") as panels:
         slice_model().fit(x)  # warm-up; hands phase K2 the fit's panel
-    finally:
-        k2.jacobi_svd_vmem = real_k2
     require(len(panels) == 1, "the fit did not reach the Jacobi kernel")
-
-    launches = {"sketch_moments": 0, "jacobi_svd": 0}
-    fit_ms = []
-    for _ in range(3):
-        model = slice_model()
-        k1.launches = 0
-        k2.launches = 0
-        model.fit(x)
-        require(k1.launches > 0, "a slice fit launched no K1")
-        require(k2.launches > 0, "a slice fit launched no K2")
-        launches["sketch_moments"] += k1.launches
-        launches["jacobi_svd"] += k2.launches
-        fit_ms.append(model.last_fit_stats_.wall_time_s * 1e3)
-    means = cs64 / N
-    gc = gram64 - N * torch.outer(means, means)
+    ctx.k2_panel = panels[0]
+    fit_ms, launches, model = timed_fits(
+        slice_model, x, {"sketch_moments": k1, "jacobi_svd": k2}
+    )
+    ctx.add_launches(launches)
+    means = ctx.cs64 / N
+    gc = ctx.gram64 - N * torch.outer(means, means)
     sigma_ref = torch.linalg.eigvalsh(gc).flip(0)[:K].clamp(min=0).sqrt()
-    sigma = model.singular_values_.double()
+    ctx.slice_sigma = sigma = model.singular_values_.double()
     sig_rel = float(((sigma - sigma_ref).abs() / sigma_ref).max())
     require(sig_rel <= 1e-4, f"slice σ relative error {sig_rel} > 1e-4")
     z = model.transform(x)
@@ -184,85 +279,366 @@ def main() -> int:
     z_ft = slice_model().fit_transform(x)
     ft_err = float((z_ft - z).abs().max() / z.abs().max())
     require(ft_err <= 1e-4, f"fit_transform vs fit+transform {ft_err}")
-    emit({"phase": "slice", "route": "range_finder=gram, "
-          "gram_projection=data", "fit_ms": fit_ms,
-          "fit_ms_median": statistics.median(fit_ms),
-          "launches_per_3_fits": launches, "sigma_rel_err_vs_f64": sig_rel,
-          "fit_transform_rel_err": ft_err})
-    del z, back, z_ft
+    return {"phase": "slice", "route": "range_finder=gram, "
+            "gram_projection=data", "fit_ms": fit_ms,
+            "fit_ms_median": statistics.median(fit_ms),
+            "launches_per_3_fits": launches,
+            "sigma_rel_err_vs_f64": sig_rel, "fit_transform_rel_err": ft_err}
 
-    # -- K2 against its plain version and float64 singular values ------
+
+@phase
+def phase_k2(ctx):
+    """K2 against its plain version and float64 singular values."""
+    import torch
+
+    k2, g, dev = ctx.k2, ctx.g, ctx.dev
     g.manual_seed(SEED + 2)
     cases = {
-        "fit_panel": panels[0],
+        "fit_panel": ctx.k2_panel,
         "random_1024x44": torch.randn(1024, 44, generator=g, device=dev),
         "rank5_1024x44": torch.randn(1024, 5, generator=g, device=dev)
         @ torch.randn(5, 44, generator=g, device=dev),
     }
-    k2_report = {}
-    k2_err = 0.0
+    report, err_max = {}, 0.0
     for name, a in cases.items():
-        m, n = a.shape
-        a_rot, v, off = k2.jacobi_svd_vmem(a)
-        a_rot_p, _, _ = k2._jacobi_svd_plain(a, 30)
-        s = a_rot.norm(dim=0).sort(descending=True).values.double()
-        s_p = a_rot_p.norm(dim=0).sort(descending=True).values.double()
-        s_ref = torch.linalg.svdvals(a.double())
-        a64 = a.double()
-        rec = float((a_rot.double() @ v.double().mT - a64).norm()
-                    / a64.norm())
-        orth = float((v.double().mT @ v.double() - torch.eye(
-            n, dtype=torch.float64, device=dev)).abs().max())
-        sig = float((s - s_ref).abs().max() / s_ref[0])
-        sig_plain = float((s - s_p).abs().max() / s_ref[0])
-        tol = k2._tol(m, n)
-        require(sig <= 1e-5, f"K2 {name}: σ error {sig} > 1e-5·σ₁")
-        require(sig_plain <= 1e-5, f"K2 {name}: σ vs plain {sig_plain}")
-        require(rec <= 1e-5, f"K2 {name}: reconstruction {rec} > 1e-5")
-        require(orth <= 1e-5, f"K2 {name}: ‖VᵀV − I‖ {orth} > 1e-5")
-        require(float(off) <= tol, f"K2 {name}: off {float(off)} > {tol}")
-        k2_err = max(k2_err, float((s - s_p).abs().max()))
-        k2_report[name] = {"shape": [m, n], "sigma_rel_err_f64": sig,
-                           "sigma_rel_err_plain": sig_plain,
-                           "reconstruction": rec, "orthogonality": orth,
-                           "off": float(off), "tol": tol}
+        report[name], err = check_jacobi(
+            f"K2 {name}", a, k2.jacobi_svd_vmem,
+            lambda p: k2._jacobi_svd_plain(p, 30), k2._tol(*a.shape),
+            1e-5, 1e-5, 1e-5,
+        )
+        err_max = max(err_max, err)
     panel = cases["fit_panel"]
-    k2_ms = cuda_ms(lambda: k2.jacobi_svd_vmem(panel), 20)
-    k2_plain_ms = cuda_ms(lambda: k2._jacobi_svd_plain(panel, 30), 3)
-    emit({"phase": "k2_vs_plain", "cases": k2_report, "ms": k2_ms,
-          "plain_ms": k2_plain_ms})
+    ms = cuda_ms(lambda: k2.jacobi_svd_vmem(panel), 20)
+    plain_ms = cuda_ms(lambda: k2._jacobi_svd_plain(panel, 30), 3)
+    ctx.kernels["jacobi_svd"].update(max_abs_err=err_max, ms=ms,
+                                     plain_ms=plain_ms)
+    return {"phase": "k2_vs_plain", "cases": report, "ms": ms,
+            "plain_ms": plain_ms}
 
-    # -- the default constructor: zero-pass route, no kernel -----------
+
+@phase
+def phase_default(ctx):
+    """The default constructor: zero-pass route, no kernel."""
+    import torch
+
+    k1, k2 = ctx.k1, ctx.k2
     default_ms = []
     k1.launches = 0
     k2.launches = 0
     for _ in range(3):
-        dm = RandomizedPca(K, seed=SEED, device="cuda").fit(x)
+        dm = ctx.api.RandomizedPca(K, seed=SEED, device=CUDA).fit(ctx.x)
         default_ms.append(dm.last_fit_stats_.wall_time_s * 1e3)
     s_def = dm.singular_values_.double()
     require(bool(torch.isfinite(s_def).all()), "default fit σ not finite")
+    sigma = ctx.slice_sigma
     def_rel = float(((s_def - sigma) / sigma).abs().max())
     require(def_rel <= 1e-4, f"default vs slice σ {def_rel} > 1e-4")
-    emit({"phase": "default_route", "route": "zero-pass Gram recovery",
-          "fit_ms": default_ms, "fit_ms_median": statistics.median(default_ms),
-          "sigma_rel_vs_slice": def_rel,
-          "launches": {"sketch_moments": k1.launches,
-                       "jacobi_svd": k2.launches}})
+    del ctx.x
+    torch.cuda.empty_cache()
+    return {"phase": "default_route", "route": "zero-pass Gram recovery",
+            "fit_ms": default_ms,
+            "fit_ms_median": statistics.median(default_ms),
+            "sigma_rel_vs_slice": def_rel,
+            "launches": {"sketch_moments": k1.launches,
+                         "jacobi_svd": k2.launches}}
 
-    emit({"kernels": [
-        {"name": "sketch_moments", "route": "cuda",
-         "source": "petal_decomposition_tpu_torch/csrc/sketch_moments.cu",
-         "replaces": "petal_decomposition_tpu/ops/pallas/sketch_kernel.py:143",
-         "launches": launches["sketch_moments"], "max_abs_err": y_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "jacobi_svd", "route": "cuda",
-         "source": "petal_decomposition_tpu_torch/csrc/jacobi_svd.cu",
-         "replaces":
-             "petal_decomposition_tpu/ops/pallas/jacobi_kernels.py:187",
-         "launches": launches["jacobi_svd"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-    ]})
-    print(smi, flush=True)
+
+# -- exact Pca, and the float64 paths through K3 ----------------------
+
+def exact_model(ctx, solver="full"):
+    return ctx.api.PcaBuilder(K).solver(solver).device(CUDA).build()
+
+
+@phase
+def phase_pca_f64(ctx):
+    """Exact Pca, float64, 200k × 256: QR + K3 on the 256×256 R."""
+    import torch
+
+    k3, linalg = ctx.k3, ctx.linalg
+    ctx.x64 = x64 = make_data(ctx.dev, N64, D64, torch.float64, SEED + 3)
+    with capturing(k3, "jacobi_svd_vmem_f64") as r_panels:
+        exact_model(ctx).fit(x64)  # warm-up; hands phase K3 its R
+    require(len(r_panels) == 1 and tuple(r_panels[0].shape) == (D64, D64),
+            "the exact f64 fit did not run K3 on the 256×256 R")
+    ctx.k3_cases["r_factor_256x256"] = r_panels[0]
+    fit_ms, launches, model = timed_fits(
+        lambda: exact_model(ctx), x64, {"jacobi_svd_f64": k3}
+    )
+    ctx.add_launches(launches)
+    xc = x64 - x64.mean(0)
+    ctx.s_ref64 = s_ref = torch.linalg.svdvals(xc)
+    sig = float((model._singular_full - s_ref).abs().max() / s_ref[0])
+    require(sig <= 1e-10, f"exact f64 σ error {sig} > 1e-10·σ₁")
+    z = model.transform(x64)
+    ft = rel_max(exact_model(ctx).fit_transform(x64), z)
+    require(ft <= 1e-10, f"exact f64 fit_transform vs transform {ft}")
+    back = model.inverse_transform(z)
+    require(back.shape == x64.shape and bool(torch.isfinite(back).all()),
+            "exact f64 inverse_transform is not finite (N, D)")
+    evr_sum = float(model.explained_variance_ratio_.sum())
+    require(evr_sum <= 1 + 1e-12, f"explained variance sums to {evr_sum}")
+
+    def plain_pipeline():
+        xcp = x64 - x64.mean(0)
+        u, s, vt = torch.linalg.svd(xcp, full_matrices=False)
+        return (*linalg.svd_flip(u, vt), s)
+
+    # The QR + K3 composition against cuSOLVER's SVD, signs fixed by
+    # svd_flip on both sides.
+    u_ref, vt_ref, s_ref = plain_pipeline()
+    comp = float((model.components_ - vt_ref[:K]).abs().max())
+    tr = rel_max(z, u_ref[:, :K] * s_ref[:K])
+    del u_ref
+    require(comp <= 1e-10, f"exact f64 components vs cuSOLVER {comp}")
+    require(tr <= 1e-10, f"exact f64 transform vs cuSOLVER U·σ {tr}")
+    plain_ms = cuda_ms(plain_pipeline, 3)
+    stages = qr_route_stages(x64, k3.jacobi_svd_vmem_f64)
+    return {"phase": "pca_f64", "x": [N64, D64], "k": K,
+            "route": "QR + K3 on R", "fit_ms": fit_ms,
+            "fit_ms_median": statistics.median(fit_ms),
+            "plain_pipeline_ms": plain_ms, "stages_ms": stages,
+            "launches_per_3_fits": launches,
+            "sigma_rel_err_vs_svdvals": sig, "fit_transform_rel_err": ft,
+            "components_max_abs_err_vs_svd": comp,
+            "transform_rel_err_vs_svd": tr,
+            "explained_variance_ratio_sum": evr_sum}
+
+
+@phase
+def phase_pca_f64_gram(ctx):
+    """The same table through the Gram solver: K3 as the eigensolver."""
+    import torch
+
+    k3, x64 = ctx.k3, ctx.x64
+    with capturing(k3, "jacobi_svd_vmem_f64") as grams:
+        exact_model(ctx, "gram").fit(x64)  # warm-up
+    require(len(grams) == 1 and tuple(grams[0].shape) == (D64, D64),
+            "the Gram fit did not run K3 on the 256×256 Gram")
+    ctx.k3_cases["psd_gram_256x256"] = psd = grams[0]
+    fit_ms, launches, model = timed_fits(
+        lambda: exact_model(ctx, "gram"), x64, {"jacobi_svd_f64": k3}
+    )
+    ctx.add_launches(launches)
+    s_ref = ctx.s_ref64
+    sig = float((model._singular_full - s_ref).abs().max() / s_ref[0])
+    require(sig <= 1e-8, f"Gram-route σ error {sig} > 1e-8·σ₁")
+    eigh_k3_ms = cuda_ms(lambda: ctx.linalg.eigh_psd_jit_cert(psd), 5)
+    eigh_torch_ms = cuda_ms(lambda: torch.linalg.eigh(psd), 5)
+    del ctx.x64
+    torch.cuda.empty_cache()
+    return {"phase": "pca_f64_gram", "x": [N64, D64], "k": K,
+            "route": "Gram + K3 eigh", "fit_ms": fit_ms,
+            "fit_ms_median": statistics.median(fit_ms),
+            "launches_per_3_fits": launches,
+            "sigma_rel_err_vs_svdvals": sig,
+            "eigh_256_k3_ms": eigh_k3_ms, "eigh_256_torch_ms": eigh_torch_ms}
+
+
+@phase
+def phase_config1(ctx):
+    """BASELINE config 1: 1000 × 64 float64 Gaussian, direct K3, against
+    the reference pipeline (center → SVD → svd_flip → U·σ) in float64
+    by cuSOLVER."""
+    import torch
+
+    k3, linalg = ctx.k3, ctx.linalg
+    ctx.g.manual_seed(SEED + 4)
+    x = torch.randn(1000, 64, generator=ctx.g, device=ctx.dev,
+                    dtype=torch.float64)
+    model = ctx.api.PcaBuilder(64).device(CUDA).build()
+    k3.launches = 0
+    y = model.fit_transform(x)
+    launches = {"jacobi_svd_f64": k3.launches}
+    require(k3.launches > 0, "config 1 fit launched no K3")
+    ctx.add_launches(launches)
+    mu = x.mean(0)
+    ctx.k3_cases["config1_centered_1000x64"] = x - mu
+    u, s, vt = torch.linalg.svd(x - mu, full_matrices=False)
+    u, vt = linalg.svd_flip(u, vt)
+    y_ref = u * s
+    err = float((y - y_ref).abs().max())
+    t_err = float((model.transform(x) - y_ref).abs().max())
+    inv_err = float((model.inverse_transform(y) - (y_ref @ vt + mu))
+                    .abs().max())
+    require(err <= 1e-10, f"config 1 fit_transform error {err}")
+    require(t_err <= 1e-10, f"config 1 transform error {t_err}")
+    require(inv_err <= 1e-10, f"config 1 inverse_transform error {inv_err}")
+    return {"phase": "pca_config1", "x": [1000, 64], "k": 64,
+            "route": "direct K3",
+            "fit_transform_ms": model.last_fit_stats_.wall_time_s * 1e3,
+            "launches": launches, "fit_transform_max_abs_err": err,
+            "transform_max_abs_err": t_err,
+            "inverse_transform_max_abs_err": inv_err}
+
+
+@phase
+def phase_pca_f32(ctx):
+    """Exact Pca, float32, 1M × 64: QR + K2 on the 64×64 R."""
+    import torch
+
+    k2 = ctx.k2
+    x = make_data(ctx.dev, N32, D32, torch.float32, SEED + 5)
+    exact_model(ctx).fit(x)  # warm-up
+    fit_ms, launches, model = timed_fits(
+        lambda: exact_model(ctx), x, {"jacobi_svd": k2}
+    )
+    ctx.add_launches(launches)
+    x64 = x.double()
+    s_ref = torch.linalg.svdvals(x64 - x64.mean(0))[:K]
+    sig = float(((model.singular_values_.double() - s_ref).abs()
+                 / s_ref).max())
+    require(sig <= 1e-5, f"exact f32 σ relative error {sig} > 1e-5")
+    stages = qr_route_stages(x, k2.jacobi_svd_vmem)
+    del x, x64
+    torch.cuda.empty_cache()
+    return {"phase": "pca_f32", "x": [N32, D32], "k": K,
+            "route": "QR + K2 on R", "fit_ms": fit_ms,
+            "fit_ms_median": statistics.median(fit_ms), "stages_ms": stages,
+            "launches_per_3_fits": launches, "sigma_rel_err_vs_f64": sig}
+
+
+@phase
+def phase_randomized_f64(ctx):
+    """BASELINE config 2: RandomizedPca on 100k × 1024 float64 at the
+    default knobs; its SVD of Bᵀ is K3, once per fit."""
+    import torch
+
+    k3 = ctx.k3
+    x = make_data(ctx.dev, NR, DR, torch.float64, SEED + 6)
+
+    def model():
+        return ctx.api.RandomizedPca(K, seed=SEED, device=CUDA)
+
+    with capturing(k3, "jacobi_svd_vmem_f64") as panels:
+        model().fit(x)  # warm-up; hands phase K3 the fit's Bᵀ
+    require(len(panels) == 1 and tuple(panels[0].shape) == (DR, L),
+            "the f64 randomized fit did not run K3 on Bᵀ")
+    ctx.k3_cases["bt_1024x42"] = panels[0]
+    fit_ms, launches, fitted = timed_fits(model, x, {"jacobi_svd_f64": k3})
+    require(launches["jacobi_svd_f64"] == 3, "K3 not once per fit")
+    ctx.add_launches(launches)
+    s_ref = sigma_of_centered_gram(x)
+    sig = float(((fitted.singular_values_ - s_ref).abs() / s_ref).max())
+    require(sig <= 1e-4, f"f64 randomized σ relative error {sig} > 1e-4")
+    del x
+    torch.cuda.empty_cache()
+    return {"phase": "randomized_f64", "x": [NR, DR], "k": K,
+            "route": "mixed finder, data-side recovery, K3 on Bᵀ",
+            "fit_ms": fit_ms, "fit_ms_median": statistics.median(fit_ms),
+            "launches_per_3_fits": launches, "sigma_rel_err_vs_f64": sig}
+
+
+@phase
+def phase_k3(ctx):
+    """K3 against its plain version and float64 singular values, on the
+    panels the fits handed it and a rank-5 one."""
+    import torch
+
+    k3, g = ctx.k3, ctx.g
+    g.manual_seed(SEED + 7)
+    f64 = torch.float64
+    cases = dict(ctx.k3_cases)
+    cases["rank5_1000x64"] = (
+        torch.randn(1000, 5, generator=g, device=ctx.dev, dtype=f64)
+        @ torch.randn(5, 64, generator=g, device=ctx.dev, dtype=f64)
+    )
+    report, err_max = {}, 0.0
+    for name, a in cases.items():
+        report[name], err = check_jacobi(
+            f"K3 {name}", a, k3.jacobi_svd_vmem_f64,
+            lambda p: k3._jacobi_svd_plain_f64(p, 30), k3._tol(*a.shape),
+            1e-11, 1e-11, 1e-12,
+        )
+        err_max = max(err_max, err)
+    times = {}
+    for name in ("r_factor_256x256", "bt_1024x42"):
+        a = cases[name]
+        times[name] = {
+            "ms": cuda_ms(lambda: k3.jacobi_svd_vmem_f64(a), 20),
+            "plain_ms": cuda_ms(lambda: k3._jacobi_svd_plain_f64(a, 30), 3),
+        }
+    ctx.kernels["jacobi_svd_f64"].update(
+        max_abs_err=err_max, **times["r_factor_256x256"]
+    )
+    return {"phase": "k3_vs_plain", "cases": report, "times": times}
+
+
+PHASES = (phase_k1, phase_slice, phase_k2, phase_default, phase_pca_f64,
+          phase_pca_f64_gram, phase_config1, phase_pca_f32,
+          phase_randomized_f64, phase_k3)
+
+KERNELS = {
+    "sketch_moments": ("sketch_moments.cu", "sketch_kernel.py:143"),
+    "jacobi_svd": ("jacobi_svd.cu", "jacobi_kernels.py:187"),
+    "jacobi_svd_f64": ("jacobi_svd_f64.cu", "jacobi_f64_kernel.py:187"),
+}
+
+
+def context():
+    """Import the port, build its kernels in parallel and print the
+    device line; the state the phases share."""
+    import torch
+
+    import petal_decomposition_tpu_torch as api
+    from petal_decomposition_tpu_torch.ops import linalg
+    from petal_decomposition_tpu_torch.ops.kernels import (
+        jacobi_f64_kernel as k3,
+        jacobi_kernels as k2,
+        sketch_kernel as k1,
+    )
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        for done in [pool.submit(m.build) for m in (k1, k2, k3)]:
+            done.result()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0],
+          "kernel_build_s": time.perf_counter() - t0})
+    ctx = SimpleNamespace(
+        api=api, linalg=linalg, k1=k1, k2=k2, k3=k3, smi=smi,
+        dev=torch.device(CUDA), k3_cases={},
+        kernels={name: {"launches": 0} for name in KERNELS},
+    )
+
+    def add_launches(counts):
+        for name, n in counts.items():
+            ctx.kernels[name]["launches"] += n
+
+    ctx.add_launches = add_launches
+    return ctx
+
+
+def kernels_line(ctx) -> dict:
+    out = []
+    for name, (source, replaces) in KERNELS.items():
+        k = ctx.kernels[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"petal_decomposition_tpu_torch/csrc/{source}",
+            "replaces": f"petal_decomposition_tpu/ops/pallas/{replaces}",
+            "launches": k["launches"], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+        })
+    return {"kernels": out}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    ctx = context()
+    for run in PHASES:
+        run(ctx)
+    emit(kernels_line(ctx))
+    print(ctx.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,18 +3,22 @@
 The counterpart of ``petal_decomposition_tpu`` for NVIDIA Hopper: the
 same algorithms, API, error taxonomy and tolerances, in plain PyTorch
 around kernels written by hand for the card.  It imports ``torch`` and
-never ``jax``.  Ported so far: the in-core randomized PCA.
+never ``jax``.  Ported so far: the in-core exact and randomized PCA.
 
 >>> from petal_decomposition_tpu_torch import (
-...     RandomizedPca, RandomizedPcaBuilder, DecompositionError,
+...     Pca, PcaBuilder, RandomizedPca, RandomizedPcaBuilder,
+...     DecompositionError,
 ... )
 """
 
 from .config import config
 from .errors import DecompositionError, InvalidInput, LinalgError
+from .models.pca import Pca, PcaBuilder
 from .models.randomized_pca import RandomizedPca, RandomizedPcaBuilder
 
 __all__ = [
+    "Pca",
+    "PcaBuilder",
     "RandomizedPca",
     "RandomizedPcaBuilder",
     "DecompositionError",

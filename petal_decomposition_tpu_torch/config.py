@@ -1,12 +1,13 @@
 """Global configuration of the PyTorch port.
 
 The counterpart of ``petal_decomposition_tpu/config.py``, reduced to
-the fields the randomized-PCA fit reads:
+the fields the PCA fits read:
 
 * ``linalg_backend``:
     - ``"auto"``   — per-dtype dispatch: float64 uses the in-house Jacobi
-      SVD (the 1e-10 parity route on every device); float32 uses the
-      Jacobi kernel on CUDA and ``torch.linalg`` (LAPACK) on the CPU.
+      SVD (the 1e-10 parity route on every device: K3 on CUDA); float32
+      uses it on CUDA (K2) and ``torch.linalg`` (LAPACK) on the CPU;
+      complex always uses ``torch.linalg``.
     - ``"jacobi"`` — always use the in-house Jacobi SVD.
     - ``"torch"``  — always use ``torch.linalg`` (the counterpart of the
       JAX package's ``"xla"``).

@@ -30,13 +30,15 @@
 //   convergence measure as the TPU kernel: off is reset every sweep, is the
 //   max over steps of max|apq| / max(app, aqq), and sweeps stop once
 //   off ≤ tol.  The per-pair values for that measure are double-buffered by
-//   step parity, so a step needs one barrier.
+//   step parity, so a step needs one barrier.  The maxima propagate NaN, so a
+//   non-finite panel cannot report convergence.
 // * An odd n gets a zero column in shared memory only: a zero column never
 //   rotates, so the outputs hold just the n real columns.
 
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -48,6 +50,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// max that propagates NaN (fmaxf would drop it).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || isnan(a)) ? a : b;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -105,7 +112,7 @@ jacobi_svd_kernel(const float* __restrict__ at, float* __restrict__ arot_t,
         const bool skip = abs_pq <= eps * sqrtf(app * aqq);
         if (lane == 0) {
           pair_off[buf + i] = abs_pq;
-          pair_nrm[buf + i] = fmaxf(app, aqq);
+          pair_nrm[buf + i] = max_nan(app, aqq);
         }
         if (skip) continue;  // c = 1, s = 0: the identity
         const float sgn = apq >= 0.f ? 1.f : -1.f;
@@ -133,10 +140,10 @@ jacobi_svd_kernel(const float* __restrict__ at, float* __restrict__ arot_t,
       if (tid == 0) {
         float nrm = 0.f, opq = 0.f;
         for (int i = 0; i < h; ++i) {
-          nrm = fmaxf(nrm, pair_nrm[buf + i]);
-          opq = fmaxf(opq, pair_off[buf + i]);
+          nrm = max_nan(nrm, pair_nrm[buf + i]);
+          opq = max_nan(opq, pair_off[buf + i]);
         }
-        off = fmaxf(off, opq / (nrm > 0.f ? nrm : 1.f));
+        off = max_nan(off, opq / (nrm > 0.f ? nrm : 1.f));
       }
     }
     if (tid == 0) {

@@ -2,7 +2,7 @@
 counterpart of ``petal_decomposition_tpu/models/_common.py`` (ports of
 pca.rs:720-811 plus the dimension checks at pca.rs:199-204, 736-741,
 798-803).  The JAX package's complex→host redirect and mesh helpers
-have no counterpart here.
+have no counterpart here: complex tensors stay on the model's device.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from ..errors import InvalidInput
 from ..ops.linalg import mdot
 
 __all__ = [
+    "default_device",
     "as_matrix",
     "check_min_dims",
     "check_fitted",
@@ -24,10 +25,16 @@ __all__ = [
 ]
 
 
-def as_matrix(x, device) -> torch.Tensor:
+def default_device() -> torch.device:
+    """CUDA when a card is present, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def as_matrix(x, device, complex_ok: bool = False) -> torch.Tensor:
     """Coerce input (numpy, tensor, nested lists) to a contiguous 2-D
     floating tensor on ``device``; integers and booleans become float64,
-    as in the JAX package."""
+    as in the JAX package.  Complex input raises unless ``complex_ok``
+    (the models whose fits take it)."""
     if isinstance(x, torch.Tensor):
         t = x
     else:
@@ -37,11 +44,11 @@ def as_matrix(x, device) -> torch.Tensor:
         t = torch.from_numpy(a if a.flags.writeable else a.copy())
     if t.dim() != 2:
         raise InvalidInput(f"expected a 2-dimensional matrix, got {t.dim()}-d")
-    if t.is_complex():
+    if t.is_complex() and not complex_ok:
         raise NotImplementedError(
             "complex input is not supported by the PyTorch port yet"
         )
-    if not t.is_floating_point():
+    if not (t.is_floating_point() or t.is_complex()):
         t = t.to(torch.float64)
     return t.to(device).contiguous()
 
@@ -65,8 +72,9 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def transform(x, components, means, centering: bool):
-    """Project onto the fitted components: ``(x - μ)·Wᵀ``
-    (ref: pca.rs:726-750)."""
+    """Project onto the fitted components: ``(x - μ)·Wᴴ``
+    (ref: pca.rs:726-750; the conjugate transpose for complex data, as
+    the JAX package deliberately deviates there)."""
     check_fitted(components)
     if x.shape[1] != means.shape[0]:
         raise InvalidInput(f"# of columns should be {means.shape[0]}")
@@ -74,7 +82,7 @@ def transform(x, components, means, centering: bool):
     x = x.to(target)
     if centering:
         x = x - means
-    return mdot(x, components.mT.to(target))
+    return mdot(x, components.mH.to(target))
 
 
 def transform_with_u(u, singular, n_components: int):
@@ -88,7 +96,7 @@ def inverse_transform(y, components, means, centering: bool):
     """Back-project to the original space: ``y·W + μ``
     (ref: pca.rs:788-811)."""
     check_fitted(components)
-    y = as_matrix(y, components.device)
+    y = as_matrix(y, components.device, complex_ok=True)
     if y.shape[1] != components.shape[0]:
         raise InvalidInput(f"# of columns should be {components.shape[0]}")
     target = torch.promote_types(y.dtype, components.dtype)

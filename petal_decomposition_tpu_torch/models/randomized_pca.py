@@ -37,10 +37,6 @@ __all__ = [
 _NORMALIZERS = ("lu", "qr", "cholqr2", "none")
 
 
-def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
 def randomized_range_finder(x, size: int, n_iter: int, gen: torch.Generator,
                             normalizer: str = "lu"):
     """Orthonormal basis approximating range(x) (ref: pca.rs:689-718):
@@ -133,7 +129,8 @@ class RandomizedPca:
         self._gram_precision = gram_precision
         self._gram_projection = gram_projection
         self._device = (
-            _default_device() if device is None else torch.device(device)
+            _common.default_device() if device is None
+            else torch.device(device)
         )
         if generator is not None:
             self._gen = generator

@@ -2,20 +2,27 @@
 ``petal_decomposition_tpu/ops/jacobi.py`` (``jacobi_svd`` and its plain
 core; the two-sided ``jacobi_eigh`` is not on the port's path).
 
-Dispatch of :func:`jacobi_svd`, after transposing so that m ≥ n:
+:func:`jacobi_svd` transposes so that m ≥ n, then takes the first rung
+of the JAX package's ladder (``jacobi.py:344-400``) that fits, by dtype,
+device and the kernels' ``supports()`` alone (:func:`_route`):
 
-* float32 on CUDA within the kernel's ``supports()`` → the hand-written
-  Hopper kernel (``kernels/jacobi_kernels.py``, the JAX package's
-  ``jacobi_svd_vmem``);
-* float32 on CUDA beyond it → ``torch.linalg.svd`` (cuSOLVER).  This is
-  the counterpart of the XLA op the JAX package falls back to there
-  (its QDWH-SVD route), not a kernel of this package;
-* everything else (float64 on any device, any dtype on the CPU) → the
-  plain :func:`_jacobi_svd_core`, which is also what the JAX package
-  runs off the TPU, and what makes float64 parity at 1e-10 possible.
-  (The JAX package QR-preconditions large tall matrices first; the
-  port's float64 panels, B at l×d, are far below that size, so that
-  route comes with the exact ``Pca`` port.)
+1. ``"k2"``: float32 on CUDA within K2's reach → the hand-written
+   kernel ``kernels/jacobi_kernels.py``;
+2. ``"k3"``: float64 on CUDA within K3's reach →
+   ``kernels/jacobi_f64_kernel.py``;
+3. ``"qr_k3"``: tall float64 on CUDA (m ≥ 3n) whose n×n R factor K3
+   takes → Householder QR, K3 on R, then Q·R_rot;
+4. ``"qr_k2"``: float32 on CUDA whose R factor K2 takes → the same
+   with K2;
+5. ``"torch"``: anything else on CUDA → cuSOLVER's ``gesvd``
+   (``linalg.torch_svd``), the counterpart of the JAX package's
+   backward-stable QDWH route there;
+6. ``"qr_plain"`` / ``"plain"``: the CPU → the plain
+   :func:`_jacobi_svd_core`, QR-preconditioned for large tall inputs
+   (m ≥ 3n and m·n ≥ 2²⁰), which is what the JAX package runs off the
+   TPU and what makes float64 parity at 1e-10 possible.
+
+A kernel that fails to build or launch raises; no rung catches it.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config import config
-from .kernels import jacobi_kernels
+from .kernels import jacobi_f64_kernel, jacobi_kernels
 
 __all__ = ["jacobi_svd", "round_robin_pairings"]
 
@@ -125,6 +132,57 @@ def _jacobi_svd_core(a: torch.Tensor, *, max_sweeps: int):
     return a, v, off, sweeps
 
 
+def _route(m: int, n: int, dtype: torch.dtype, device_type: str) -> str:
+    """The rung of :func:`jacobi_svd`'s ladder an m×n panel (m ≥ n)
+    takes — see the module docstring."""
+    n_pad = n + (n % 2)
+    if device_type == "cuda":
+        if jacobi_kernels.supports(m, n, dtype):
+            return "k2"
+        if jacobi_f64_kernel.supports(m, n, dtype):
+            return "k3"
+        if m >= 3 * n and jacobi_f64_kernel.supports(n_pad, n, dtype):
+            return "qr_k3"
+        if jacobi_kernels.supports(n_pad, n, dtype):
+            return "qr_k2"
+        return "torch"
+    if m >= 3 * n and m * n >= (1 << 20):
+        return "qr_plain"
+    return "plain"
+
+
+def _rotate(route: str, a: torch.Tensor, max_sweeps: int):
+    """``(q, a_rot, v, off, sweeps)`` for an m×n panel (m ≥ n) by
+    ``route``: the columns of ``q·a_rot`` (of ``a_rot`` where ``q`` is
+    None) are uᵢ·σᵢ in no particular order, ``sweeps`` is -1 where the
+    route does not count them.  A ``"qr_"`` route runs the rest of its
+    name on the n×n R factor of a Householder QR and returns Q beside
+    the rotated R, so σ come from R's n-entry columns: in float32 the
+    norms of the m-row columns of Q·R_rot would cost ~1e-4 relative at
+    a million rows."""
+    if route.startswith("qr_"):
+        q, r = torch.linalg.qr(a, mode="reduced")
+        _, r_rot, v, off, sweeps = _rotate(route[3:], r, max_sweeps)
+        return q, r_rot, v, off, sweeps
+    if route == "k2":
+        a_rot, v, off = jacobi_kernels.jacobi_svd_vmem(
+            a, max_sweeps=max_sweeps
+        )
+        return None, a_rot, v, off, -1
+    if route == "k3":
+        a_rot, v, off = jacobi_f64_kernel.jacobi_svd_vmem_f64(
+            a, max_sweeps=max_sweeps
+        )
+        return None, a_rot, v, off, -1
+    if route == "torch":
+        from .linalg import torch_svd
+
+        u_f, s_f, vt_f = torch_svd(a)
+        off = torch.zeros((), dtype=a.dtype, device=a.device)
+        return None, u_f * s_f[None, :], vt_f.mT, off, -1
+    return (None, *_jacobi_svd_core(a, max_sweeps=max_sweeps))
+
+
 def jacobi_svd(a: torch.Tensor, *, max_sweeps: int | None = None):
     """Thin SVD via one-sided Jacobi: ``a = U diag(s) Vᵀ``.
 
@@ -144,26 +202,17 @@ def jacobi_svd(a: torch.Tensor, *, max_sweeps: int | None = None):
     if transposed:
         a = a.mT
         m, n = n, m
-
-    cuda_f32 = a.is_cuda and a.dtype == torch.float32
-    if cuda_f32 and jacobi_kernels.supports(m, n, a.dtype):
-        a_rot, v, off = jacobi_kernels.jacobi_svd_vmem(
-            a, max_sweeps=max_sweeps
-        )
-        sweeps = -1
-    elif cuda_f32:
-        # Beyond the kernel's shared-memory reach: cuSOLVER, the
-        # counterpart of the JAX package's XLA route there.
-        u_f, s_f, vt_f = torch.linalg.svd(a, full_matrices=False)
-        a_rot, v = u_f * s_f[None, :], vt_f.mT
-        off = torch.zeros((), dtype=a.dtype, device=a.device)
-        sweeps = -1
-    else:
-        a_rot, v, off, sweeps = _jacobi_svd_core(a, max_sweeps=max_sweeps)
+    q, a_rot, v, off, sweeps = _rotate(
+        _route(m, n, a.dtype, a.device.type), a, max_sweeps
+    )
     s = torch.sqrt((a_rot * a_rot).sum(0))
     order = torch.argsort(-s, stable=True)
     s = s[order]
     u = a_rot[:, order] / torch.where(s > 0, s, 1.0)
+    if q is not None:
+        from .linalg import mdot
+
+        u = mdot(q, u)  # U = Q·(R_rot·σ⁻¹)
     w = v[:, order]
     if transposed:
         # a_original = (U diag(s) Vᵀ)ᵀ = V diag(s) Uᵀ

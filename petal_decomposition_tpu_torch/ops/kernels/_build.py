@@ -6,7 +6,8 @@ C interface.  At first use it is compiled by ``nvcc`` for Hopper
 the root of the checkout and loaded with ``ctypes``.  The library's
 file name carries a hash of its sources and flags, so an edited source
 rebuilds.  A failed build raises: no route falls back to the kernel's
-plain PyTorch version on a CUDA tensor.
+plain PyTorch version on a CUDA tensor.  Each library has its own lock,
+so libraries built from several threads compile in parallel.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -58,7 +60,9 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     lib_path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if str(lib_path) in _loaded:
             return _loaded[str(lib_path)]
         if not lib_path.is_file():

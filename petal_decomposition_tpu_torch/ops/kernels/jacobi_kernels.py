@@ -85,9 +85,14 @@ def _pair_table_on(n_pad: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(pair_table(n_pad)).to(device)
 
 
-def _tol(m: int, n: int) -> float:
+# float32's unit roundoff: the TPU kernel's skip and stop constant.
+EPS = float(np.finfo(np.float32).eps)
+
+
+def _tol(m: int, n: int, tol_eps: float = EPS) -> float:
+    """The stop rule's threshold, ``tol_eps·√max(m, n_pad)``."""
     n_pad = n + (n % 2)
-    return float(np.finfo(np.float32).eps) * float(np.sqrt(max(m, n_pad)))
+    return tol_eps * float(np.sqrt(max(m, n_pad)))
 
 
 def build() -> ctypes.CDLL:
@@ -101,17 +106,19 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def _jacobi_svd_plain(a: torch.Tensor, max_sweeps: int):
+def _jacobi_svd_plain(a: torch.Tensor, max_sweeps: int, eps: float = EPS,
+                      tol_eps: float = EPS):
     """The TPU kernel's arithmetic in vectorized PyTorch: ``(a_rot, v,
-    off)`` with the same pair schedule, rotation, skip rule and
-    per-sweep norm-wise ``off``.  Used for CPU tensors and as the
-    reference the kernel is held against on the card."""
+    off)`` with the same pair schedule, rotation, skip rule
+    (|apq| ≤ ``eps``·√(app·aqq)) and per-sweep norm-wise ``off``,
+    stopping at ``_tol(m, n, tol_eps)``.  Works at ``a``'s dtype; K3
+    runs it at float64 with its own constants.  Used for CPU tensors
+    and as the reference the kernels are held against on the card."""
     m, n = a.shape
     n_pad = n + (n % 2)
     h = n_pad // 2
     dt, dev = a.dtype, a.device
-    eps = float(torch.finfo(dt).eps)
-    tol = _tol(m, n)
+    tol = _tol(m, n, tol_eps)
     # Columns as rows, so a pair's columns are contiguous row gathers.
     at = torch.zeros((n_pad, m), dtype=dt, device=dev)
     at[:n] = a.mT

@@ -4,11 +4,12 @@
 The same surface dispatches between two interchangeable routes:
 
 * the in-house one-sided Jacobi SVD (:mod:`.jacobi`) — the hand-written
-  Hopper kernel for float32 panels on CUDA, the plain PyTorch
-  transcription of the JAX package's ``_jacobi_svd_core`` for float64
-  and off the card;
+  Hopper kernels K2 (float32) and K3 (float64) on CUDA, directly or on
+  the R factor of a tall QR, and the plain PyTorch transcription of the
+  JAX package's ``_jacobi_svd_core`` off the card;
 * ``torch.linalg`` (LAPACK on the CPU, cuSOLVER on CUDA) — the
-  counterpart of the JAX package's XLA built-ins.
+  counterpart of the JAX package's XLA built-ins, and the route of
+  every complex factorization (the kernels are real-only).
 
 A tensor's ``device.type`` takes the place of the JAX package's
 ``effective_platform()``: ``"cuda"`` is the accelerator, ``"cpu"`` the
@@ -25,6 +26,7 @@ import torch
 from ..config import config
 from ..errors import LinalgError
 from .jacobi import jacobi_svd
+from .kernels import jacobi_f64_kernel
 
 __all__ = [
     "svd",
@@ -35,6 +37,7 @@ __all__ = [
     "cholesky_qr2",
     "lu_pl",
     "svd_flip",
+    "torch_svd",
     "mdot",
     "ieee_f32",
     "convergence_tol",
@@ -73,6 +76,8 @@ def mdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _use_jacobi(dtype: torch.dtype, device: torch.device) -> bool:
+    if dtype.is_complex:
+        return False  # the Jacobi routes are real-only
     backend = config.linalg_backend
     if backend == "jacobi":
         return True
@@ -104,28 +109,73 @@ def check_certificate(off, dtype: torch.dtype, dim: int, what: str) -> None:
     _check_converged(off, convergence_tol(dtype, dim), what)
 
 
+def _eigh_psd_k3(a: torch.Tensor):
+    """``(λ ascending, v, off)`` of a float64 PSD matrix by K3 on its
+    symmetrized copy: for a PSD matrix the one-sided Jacobi's σ are the
+    eigenvalues and its right vectors the eigenvectors, so λ are the
+    rotated columns' norms (``petal_decomposition_tpu/ops/linalg.py:
+    193-216``).  Symmetrizing gives LAPACK's one-triangle semantics: a
+    Gram from a matmul is not bitwise symmetric.  On a CPU tensor K3's
+    wrapper runs its plain version."""
+    a = (a + a.mT) / 2
+    a_rot, v, off = jacobi_f64_kernel.jacobi_svd_vmem_f64(
+        a, max_sweeps=config.jacobi_max_sweeps
+    )
+    lam = torch.sqrt((a_rot * a_rot).sum(0))
+    order = torch.argsort(lam, stable=True)  # ascending, LAPACK's order
+    return lam[order], v[:, order], off
+
+
 def eigh_psd_jit_cert(a: torch.Tensor):
     """Eigendecomposition of a positive-semidefinite symmetric matrix:
     ``(w ascending, v, off)``.
 
-    ``torch.linalg.eigh`` for every dtype, as the JAX package delegates
-    float32 to XLA's eigh.  Its float64 TPU route (the df64 Jacobi
-    kernel) exists because the TPU's built-in f64 eigh carries
-    float32-grade internals; LAPACK and cuSOLVER are at working
-    precision, so the port needs no kernel there.  ``off`` is 0, as for
-    the JAX package's direct backends.
+    float64 on CUDA within K3's reach (n×n, n ≤ 512) → K3 on the
+    symmetrized matrix (:func:`_eigh_psd_k3`), the JAX package's TPU
+    route; ``off`` is its certificate.  Everything else →
+    ``torch.linalg.eigh`` (LAPACK, cuSOLVER), as the JAX package
+    delegates float32 to XLA's eigh; ``off`` is 0 there.
     """
+    n = a.shape[0]
+    if (
+        config.linalg_backend in ("auto", "jacobi")
+        and a.is_cuda
+        and jacobi_f64_kernel.supports(n, n, a.dtype)
+    ):
+        return _eigh_psd_k3(a)
     w, v = torch.linalg.eigh(a)
     return w, v, torch.zeros((), dtype=w.dtype, device=w.device)
 
 
+def torch_svd(a: torch.Tensor):
+    """``torch.linalg.svd`` (thin): LAPACK on the CPU; on CUDA cuSOLVER's
+    QR-bidiagonalization ``gesvd``, oriented m ≥ n as it requires.
+    cuSOLVER's default for one matrix, the Jacobi ``gesvdj``,
+    reconstructs a float32 4096×200 panel only to 3.3e-5 (gesvd: 2.5e-6;
+    float64 1500×600: 2.2e-13 against 6.9e-15), measured on an NVIDIA
+    H100 80GB HBM3 at 700 W.
+
+    >>> a = torch.arange(6.0, dtype=torch.float64).reshape(2, 3)
+    >>> u, s, vt = torch_svd(a)
+    >>> bool(((u * s) @ vt - a).abs().max() < 1e-12)
+    True
+    """
+    if not a.is_cuda:
+        return torch.linalg.svd(a, full_matrices=False)
+    if a.shape[0] < a.shape[1]:
+        u, s, vh = torch_svd(a.mH)
+        return vh.mH, s, u.mH
+    return torch.linalg.svd(a, full_matrices=False, driver="gesvd")
+
+
 def svd_jit_cert(a: torch.Tensor):
     """Backend-dispatched thin SVD with its convergence certificate:
-    ``(u, s, vt, off)``; ``off`` is 0 for ``torch.linalg``."""
+    ``(u, s, vt, off)``; ``off`` is 0 for ``torch.linalg``, which also
+    takes every complex input."""
     if _use_jacobi(a.dtype, a.device):
         u, s, vt, off, _ = jacobi_svd(a)
         return u, s, vt, off
-    u, s, vt = torch.linalg.svd(a, full_matrices=False)
+    u, s, vt = torch_svd(a)
     return u, s, vt, torch.zeros((), dtype=s.dtype, device=s.device)
 
 
@@ -147,7 +197,7 @@ def svd(a: torch.Tensor, compute_vt: bool = True):
             off, s.dtype, max(a.shape), "singular value decomposition"
         )
     else:
-        u, s, vt = torch.linalg.svd(a, full_matrices=False)
+        u, s, vt = torch_svd(a)
     return u, s, (vt if compute_vt else None)
 
 
@@ -235,8 +285,9 @@ def svd_flip(u: torch.Tensor, vt: torch.Tensor):
     """Deterministic SVD signs (exact port of the reference convention,
     pca.rs:815-850): for each column of ``u`` find the entry of largest
     magnitude — the *first* occurrence wins ties, as in the reference's
-    strict ``>`` scan — and if it is negative, negate that column of u
-    and row of vt.
+    strict ``>`` scan — and if its real part is negative (or, when the
+    real part is exactly zero, its imaginary part is negative), negate
+    that column of u and row of vt.
 
     >>> u = torch.tensor([[-0.8], [0.6]]); vt = torch.tensor([[1.0, 2.0]])
     >>> uf, vtf = svd_flip(u, vt)  # pivot -0.8 is negative: both flip
@@ -247,8 +298,11 @@ def svd_flip(u: torch.Tensor, vt: torch.Tensor):
     ucols = u[:, :k]
     idx = torch.argmax(ucols.abs(), dim=0)  # first max, like the ref scan
     pivots = torch.gather(ucols, 0, idx[None, :])[0]
+    re = pivots.real
+    im = pivots.imag if pivots.is_complex() else torch.zeros_like(re)
     # Rust f64::signum: +1 for +0.0; flip only on a negative pivot.
-    signs = torch.where(pivots < 0, -1.0, 1.0).to(u.dtype)
+    basis = torch.where(re == 0, im, re)
+    signs = torch.where(basis < 0, -1.0, 1.0).to(u.dtype)
     u = u.clone()
     vt = vt.clone()
     u[:, :k] *= signs[None, :]

@@ -1,13 +1,14 @@
-"""The randomized-PCA fit pipeline — the single-device parts of
+"""The PCA fit pipelines — the single-device parts of
 ``petal_decomposition_tpu/parallel/distributed.py`` (the path is kept so
-a reader finds the counterpart).
+a reader finds the counterpart): ``randomized_pca_fit`` and the exact
+Gram solver ``pca_fit_gram``.
 
 The JAX module expresses every fit as one jitted computation over a
 row-sharded matrix; this port runs the same pipeline eagerly on one
 device.  The mesh parts — row sharding with padded-row masks
 (``n_valid``), the per-shard kernel under ``shard_map``, the psums that
-become ``torch.distributed.all_reduce`` — come in a later port, as do
-``pca_fit_gram`` and ``fast_ica_fit``.  The JAX package's in-graph
+become ``torch.distributed.all_reduce`` — come in a later port, as does
+``fast_ica_fit``.  The JAX package's in-graph
 ``lax.cond`` guards become host-side branches on one scalar each.
 
 Every ``gram_precision`` grade runs the Gram in IEEE float32 (TF32 off,
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.centered import (
+    _SQNORM_GUARD_RMAX,
     centered_matmul,
     centered_rmatmul,
     centered_sqnorm_guarded,
@@ -34,6 +36,7 @@ from ..ops.gram_recovery import (
 from ..ops.kernels import sketch_kernel
 from ..ops.linalg import (
     cholesky_qr2,
+    eigh_psd_jit_cert,
     ieee_f32,
     lu_pl,
     mdot,
@@ -41,7 +44,7 @@ from ..ops.linalg import (
     svd_jit_cert,
 )
 
-__all__ = ["randomized_pca_fit"]
+__all__ = ["pca_fit_gram", "randomized_pca_fit"]
 
 
 def _masked_center(x, centering: bool):
@@ -53,8 +56,9 @@ def _masked_center(x, centering: bool):
 
 
 def _contractions(x, centering: bool, fuse_centering: bool):
-    """Returns ``(means, xm, xtm, sqnorm)`` closures over the centered
-    data, fused or explicit."""
+    """Returns ``(means, xm, xtm, gram, sqnorm)`` closures over the
+    centered data, fused or explicit.  ``gram`` is the conjugate Gram
+    ``XcᴴXc`` (``XᴴX − n·μ̄μᵀ`` fused)."""
     n = x.shape[0]
     if fuse_centering:
         if centering:
@@ -65,6 +69,7 @@ def _contractions(x, centering: bool, fuse_centering: bool):
             means,
             lambda m: centered_matmul(x, m, means),
             lambda q: centered_rmatmul(x, q, means),
+            lambda: mdot(x.mH, x) - n * torch.outer(means.conj(), means),
             lambda: centered_sqnorm_guarded(x, means, n),
         )
     means, xc = _masked_center(x, centering)
@@ -72,8 +77,54 @@ def _contractions(x, centering: bool, fuse_centering: bool):
         means,
         lambda m: mdot(xc, m),
         lambda q: mdot(xc.mT, q),
+        lambda: mdot(xc.mH, xc),
         lambda: (xc * xc).sum(),
     )
+
+
+def pca_fit_gram(x, *, centering: bool = True):
+    """Exact PCA via the covariance eigenproblem (``distributed.py:
+    114-177``): ``C = XcᴴXc`` with fused centering, ``eigh(C)``, thin
+    ``U = Xc·V·σ⁻¹``.
+
+    Returns the same fields as the SVD path — ``{"u", "sigma", "vt",
+    "means", "total_variance", "off"}`` with k = min(n, d) — U/σ/Vᴴ
+    reproduce the full-SVD factorization including the deterministic
+    ``svd_flip`` signs.  ``off`` is the eigensolve's certificate (K3's
+    on CUDA at float64), which the caller checks.
+    """
+    n, d = x.shape
+    means, xm, _, gram, _ = _contractions(x, centering, True)
+    c = gram()
+    if centering:
+        # σ come straight from this Gram: the fused rank-1 centering
+        # loses ~(1 + r) of the input grade at r = n‖μ‖²/tr(C), so the
+        # exact path uses the tight thresholds of the total-variance
+        # guard; past them it rebuilds C from an explicitly centered
+        # copy (one host read of r decides).
+        tr = torch.diagonal(c).real.sum()
+        r = n * (means.abs() ** 2).sum() / torch.clamp(tr, min=1e-30)
+        if float(r) > _SQNORM_GUARD_RMAX[tr.dtype]:
+            xc = x - means
+            c = mdot(xc.mH, xc)
+    lam, v, off = eigh_psd_jit_cert(c)  # ascending
+    lam = lam.flip(0)
+    v = v.flip(1)
+    sigma = torch.sqrt(torch.clamp(lam, min=0))
+    inv_sigma = torch.where(
+        sigma > 0, 1.0 / torch.where(sigma > 0, sigma, 1.0), 0.0
+    )
+    u = xm(v) * inv_sigma.to(x.dtype)[None, :]
+    u, vt = svd_flip(u, v.mH)
+    k_full = min(n, d)
+    return {
+        "u": u[:, :k_full],
+        "sigma": sigma[:k_full],
+        "vt": vt[:k_full, :],
+        "means": means,
+        "total_variance": (sigma * sigma).sum(),
+        "off": off,
+    }
 
 
 def _resolve_range_finder(range_finder: str, n: int, d: int, l: int,
@@ -298,7 +349,9 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
     if not gram_means:
         # The Gram routes take the means from their own pass over X; an
         # eager port must not spend a column-sum pass they would discard.
-        means, xm, xtm, sqnorm = _contractions(x, centering, fuse_centering)
+        means, xm, xtm, _, sqnorm = _contractions(
+            x, centering, fuse_centering
+        )
     if mixed:
         f32 = torch.float32
         # One pass: the centered float32 copy the finder iterates on.

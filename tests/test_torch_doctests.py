@@ -7,6 +7,7 @@ import pytest
 
 _MODULES = [
     "petal_decomposition_tpu_torch",
+    "petal_decomposition_tpu_torch.models.pca",
     "petal_decomposition_tpu_torch.models.randomized_pca",
     "petal_decomposition_tpu_torch.ops.centered",
     "petal_decomposition_tpu_torch.ops.gram_recovery",

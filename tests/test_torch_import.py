@@ -26,8 +26,8 @@ def test_public_api():
     from petal_decomposition_tpu import errors as jax_errors
 
     assert set(pt.__all__) >= {
-        "RandomizedPca", "RandomizedPcaBuilder", "DecompositionError",
-        "InvalidInput", "LinalgError",
+        "Pca", "PcaBuilder", "RandomizedPca", "RandomizedPcaBuilder",
+        "DecompositionError", "InvalidInput", "LinalgError",
     }
     assert pt.__version__
     # Same taxonomy and messages as the JAX package's errors.

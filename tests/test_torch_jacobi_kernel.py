@@ -148,11 +148,13 @@ def test_kernel_matches_plain_on_card(cuda_device, kind, m, n):
 
 @pytest.mark.cuda
 def test_svd_dispatch_on_card(cuda_device):
-    """float32 panels within reach go to the kernel; a larger one goes
-    to cuSOLVER; both factor the panel."""
+    """float32 panels within reach go to the kernel, directly or on the
+    R factor of a tall QR; one beyond both goes to cuSOLVER; all factor
+    the panel."""
     from petal_decomposition_tpu_torch.ops.jacobi import jacobi_svd
 
-    for (m, n), launched in (((43, 1024), 1), ((64, 4096), 0)):
+    for (m, n), launched in (((43, 1024), 1), ((64, 4096), 1),
+                             ((200, 4096), 0)):
         a = torch.from_numpy(_panel("full", n, m).T.copy()).to(cuda_device)
         before = k2.launches
         u, s, vt, off, _ = jacobi_svd(a)
