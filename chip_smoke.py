@@ -16,19 +16,27 @@ through the entry points a user calls:
   eigensolver; BASELINE config 1 (1000 × 64 float64, direct K3); a
   1,000,000 × 64 float32 fit through QR + K2 on R;
 * ``RandomizedPca`` at BASELINE config 2 (100,000 × 1024 float64,
-  k = 32, default knobs), whose SVD of Bᵀ is K3.
+  k = 32, default knobs), whose SVD of Bᵀ is K3, and the same table
+  through the zero-pass Gram recovery, whose two 42×42 eighs are K3.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  Every phase prints one JSON line with its
 numbers and its time; any failed check raises, so the exit code is
-non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without
-a CUDA device, or without the package beside it, the script fails before
-printing any result.
+non-zero.  The line before the card's name holds each kernel's time,
+its plain version's, one PyTorch call's for the same function where
+there is one, and its bound: the larger of the bytes it must move over
+3.35 TB/s and its operations (for the Jacobi kernels, this run's sweeps
+of n(n−1)/2 column pairs each, the fewer of the kernel's and the TPU
+kernel's order's) over 67 TFLOP/s, float32 outside the tensor cores or
+float64 on them (NVIDIA's H100 SXM data sheet).  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+or without the package beside it, the script fails before printing any
+result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -43,6 +51,10 @@ N64, D64 = 200_000, 256  # the exact float64 fit's feature table
 NR, DR = 100_000, 1024  # BASELINE config 2, the float64 randomized fit
 N32, D32 = 1_000_000, 64  # the exact float32 fit
 CUDA = "cuda"
+HBM_BYTES_S = 3.35e12
+# NVIDIA's H100 SXM data sheet: float32 outside the tensor cores, float64
+# on them (DMMA; 34 outside them).
+PEAK_FLOP_S = {"float32": 67e12, "float64": 67e12}
 
 
 def emit(obj) -> None:
@@ -137,6 +149,135 @@ def capturing(module, name):
 
 def rel_max(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
+    and operations over the peak rate of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sweeps_to_converge(run, a, tol, max_sweeps=30) -> int:
+    """The sweeps a Jacobi solver ``run(a, max_sweeps=s)`` runs on ``a``:
+    the fewest whose certificate meets ``tol`` (it is deterministic, and
+    stops at the first sweep that meets it), found by bisection."""
+    lo, hi = 1, max_sweeps
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if float(run(a, max_sweeps=mid)[2]) <= tol:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def jacobi_bound(a, sweeps: int):
+    """The least time for ``sweeps`` one-sided Jacobi sweeps of an m×n
+    panel: read it, write U·σ and V; per sweep n(n−1)/2 column pairs,
+    each three dot products and a rotation of its m rows of A and n
+    rows of V."""
+    m, n = a.shape
+    size = a.element_size()
+    flops = sweeps * n * (n - 1) / 2 * (12 * m + 6 * n)
+    return bound(size * (2 * m * n + n * n), flops, str(a.dtype)[6:])
+
+
+def pca64_data(dev):
+    """The exact float64 fits' 200,000 × 256 feature table."""
+    import torch
+
+    return make_data(dev, N64, D64, torch.float64, SEED + 3)
+
+
+def config1_data(dev):
+    """BASELINE config 1's table: 1000 × 64 float64 Gaussian."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    return torch.randn(1000, 64, generator=g, device=dev,
+                       dtype=torch.float64)
+
+
+def randomized64_data(dev):
+    """BASELINE config 2's table: 100,000 × 1024 float64."""
+    import torch
+
+    return make_data(dev, NR, DR, torch.float64, SEED + 6)
+
+
+def split_panel(dev):
+    """A centered 10,000 × 50 float64 Gaussian panel with column scales
+    1 to 5, as an exact fit of such a table hands it to K3: the plan
+    splits its columns over two block pairs and each pair's rows over
+    23 CTAs."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 8)
+    f64 = torch.float64
+    x = (torch.randn(10_000, 50, generator=g, device=dev, dtype=f64)
+         * torch.linspace(1, 5, 50, device=dev, dtype=f64))
+    return x - x.mean(0)
+
+
+def exact_model(api, dev, solver="full"):
+    return api.PcaBuilder(K).solver(solver).device(dev).build()
+
+
+def randomized_model(api, dev):
+    """BASELINE config 2's model: the default knobs."""
+    return api.RandomizedPca(K, seed=SEED, device=dev)
+
+
+def gram_recovery_model(api, dev):
+    """The zero-pass Gram-recovery fit in float64: two l×l eighs."""
+    return (api.RandomizedPcaBuilder(K).seed(SEED).finder_precision("full")
+            .range_finder("gram").gram_projection("gram").device(dev)
+            .build())
+
+
+def k3_inputs(k3, make, x, count):
+    """Fit ``make()`` on ``x`` once and return the ``count`` panels the
+    fit handed K3."""
+    with capturing(k3, "jacobi_svd_vmem_f64") as seen:
+        make().fit(x)
+    require(len(seen) == count, f"a fit ran K3 {len(seen)} times, not {count}")
+    return seen
+
+
+def k3_panels(api, k3, dev, on_fit=None):
+    """The panels K3 is timed on (``K3_TIMED``), from the fits that hand
+    them over: the 256×256 R and Gram of exact ``Pca(32)`` on the
+    200k×256 table (QR and Gram routes), Bᵀ 1024×42 of config 2's
+    ``RandomizedPca`` and the first 42×42 eigh of its zero-pass Gram
+    recovery, config 1's centered 1000×64 panel (direct K3) and
+    ``split_panel``.  ``on_fit(name, make, x)`` is called after each
+    fit's capture."""
+    fits = {
+        "r_factor_256x256": (pca64_data, lambda: exact_model(api, dev), 1),
+        "psd_gram_256x256": (
+            pca64_data, lambda: exact_model(api, dev, "gram"), 1),
+        "bt_1024x42": (
+            randomized64_data, lambda: randomized_model(api, dev), 1),
+        "gram_recovery_eigh_42x42": (
+            randomized64_data, lambda: gram_recovery_model(api, dev), 2),
+    }
+    panels, table = {}, {}
+    for name, (data, make, count) in fits.items():
+        if data not in table:
+            table.clear()  # one table on the card at a time
+            table[data] = data(dev)
+        panels[name] = k3_inputs(k3, make, table[data], count)[0]
+        if on_fit is not None:
+            on_fit(name, make, table[data])
+    table.clear()
+    x = config1_data(dev)
+    panels["config1_centered_1000x64"] = x - x.mean(0)
+    panels["split_10000x50"] = split_panel(dev)
+    return panels
 
 
 def timed_fits(make, x, kernels, reps=3):
@@ -236,11 +377,20 @@ def phase_k1(ctx):
     require(sq_rel <= 1e-5, f"K1 sqnorm relative error {sq_rel} > 1e-5")
     ms = cuda_ms(lambda: k1.fused_sketch_moments(x, w), 20)
     plain_ms = cuda_ms(lambda: k1._sketch_moments_plain(x, w), 20)
-    ctx.kernels["sketch_moments"].update(max_abs_err=y_err, ms=ms,
-                                         plain_ms=plain_ms)
+    # No one PyTorch call computes Y, the column sums and ‖X‖²_F; the
+    # product alone is timed beside it.
+    matmul_ms = cuda_ms(lambda: x @ w, 20)
+    bound_ms, bound_by = bound(4 * (N * D + D * L + N * L + D + 1),
+                               2 * N * D * L + 3 * N * D, "float32")
+    ctx.kernels["sketch_moments"].update(
+        max_abs_err=y_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+    )
     return {"phase": "k1_vs_plain", "x": [N, D], "w": [D, L],
             "y_max_abs_err": y_err, "y_band": y_band,
-            "sqnorm_rel_err": sq_rel, "ms": ms, "plain_ms": plain_ms}
+            "sqnorm_rel_err": sq_rel, "ms": ms, "plain_ms": plain_ms,
+            "x_times_w_ms": matmul_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 @phase
@@ -310,10 +460,19 @@ def phase_k2(ctx):
     panel = cases["fit_panel"]
     ms = cuda_ms(lambda: k2.jacobi_svd_vmem(panel), 20)
     plain_ms = cuda_ms(lambda: k2._jacobi_svd_plain(panel, 30), 3)
-    ctx.kernels["jacobi_svd"].update(max_abs_err=err_max, ms=ms,
-                                     plain_ms=plain_ms)
-    return {"phase": "k2_vs_plain", "cases": report, "ms": ms,
-            "plain_ms": plain_ms}
+    library_ms = cuda_ms(lambda: torch.linalg.svd(
+        panel, full_matrices=False, driver="gesvd"), 20)
+    sweeps = sweeps_to_converge(k2.jacobi_svd_vmem, panel,
+                                k2._tol(*panel.shape))
+    bound_ms, bound_by = jacobi_bound(panel, sweeps)
+    ctx.kernels["jacobi_svd"].update(
+        max_abs_err=err_max, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+    )
+    return {"phase": "k2_vs_plain", "cases": report,
+            "fit_panel": list(panel.shape), "ms": ms, "plain_ms": plain_ms,
+            "gesvd_ms": library_ms, "sweeps": sweeps, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 @phase
@@ -345,9 +504,6 @@ def phase_default(ctx):
 
 # -- exact Pca, and the float64 paths through K3 ----------------------
 
-def exact_model(ctx, solver="full"):
-    return ctx.api.PcaBuilder(K).solver(solver).device(CUDA).build()
-
 
 @phase
 def phase_pca_f64(ctx):
@@ -355,22 +511,23 @@ def phase_pca_f64(ctx):
     import torch
 
     k3, linalg = ctx.k3, ctx.linalg
-    ctx.x64 = x64 = make_data(ctx.dev, N64, D64, torch.float64, SEED + 3)
-    with capturing(k3, "jacobi_svd_vmem_f64") as r_panels:
-        exact_model(ctx).fit(x64)  # warm-up; hands phase K3 its R
-    require(len(r_panels) == 1 and tuple(r_panels[0].shape) == (D64, D64),
+    ctx.x64 = x64 = pca64_data(ctx.dev)
+
+    def make():
+        return exact_model(ctx.api, CUDA)
+
+    (r_panel,) = k3_inputs(k3, make, x64, 1)  # warm-up; hands phase K3 its R
+    require(tuple(r_panel.shape) == (D64, D64),
             "the exact f64 fit did not run K3 on the 256×256 R")
-    ctx.k3_cases["r_factor_256x256"] = r_panels[0]
-    fit_ms, launches, model = timed_fits(
-        lambda: exact_model(ctx), x64, {"jacobi_svd_f64": k3}
-    )
+    ctx.k3_cases["r_factor_256x256"] = r_panel
+    fit_ms, launches, model = timed_fits(make, x64, {"jacobi_svd_f64": k3})
     ctx.add_launches(launches)
     xc = x64 - x64.mean(0)
     ctx.s_ref64 = s_ref = torch.linalg.svdvals(xc)
     sig = float((model._singular_full - s_ref).abs().max() / s_ref[0])
     require(sig <= 1e-10, f"exact f64 σ error {sig} > 1e-10·σ₁")
     z = model.transform(x64)
-    ft = rel_max(exact_model(ctx).fit_transform(x64), z)
+    ft = rel_max(exact_model(ctx.api, CUDA).fit_transform(x64), z)
     require(ft <= 1e-10, f"exact f64 fit_transform vs transform {ft}")
     back = model.inverse_transform(z)
     require(back.shape == x64.shape and bool(torch.isfinite(back).all()),
@@ -410,14 +567,15 @@ def phase_pca_f64_gram(ctx):
     import torch
 
     k3, x64 = ctx.k3, ctx.x64
-    with capturing(k3, "jacobi_svd_vmem_f64") as grams:
-        exact_model(ctx, "gram").fit(x64)  # warm-up
-    require(len(grams) == 1 and tuple(grams[0].shape) == (D64, D64),
+
+    def make():
+        return exact_model(ctx.api, CUDA, "gram")
+
+    (psd,) = k3_inputs(k3, make, x64, 1)  # warm-up
+    require(tuple(psd.shape) == (D64, D64),
             "the Gram fit did not run K3 on the 256×256 Gram")
-    ctx.k3_cases["psd_gram_256x256"] = psd = grams[0]
-    fit_ms, launches, model = timed_fits(
-        lambda: exact_model(ctx, "gram"), x64, {"jacobi_svd_f64": k3}
-    )
+    ctx.k3_cases["psd_gram_256x256"] = psd
+    fit_ms, launches, model = timed_fits(make, x64, {"jacobi_svd_f64": k3})
     ctx.add_launches(launches)
     s_ref = ctx.s_ref64
     sig = float((model._singular_full - s_ref).abs().max() / s_ref[0])
@@ -442,9 +600,7 @@ def phase_config1(ctx):
     import torch
 
     k3, linalg = ctx.k3, ctx.linalg
-    ctx.g.manual_seed(SEED + 4)
-    x = torch.randn(1000, 64, generator=ctx.g, device=ctx.dev,
-                    dtype=torch.float64)
+    x = config1_data(ctx.dev)
     model = ctx.api.PcaBuilder(64).device(CUDA).build()
     k3.launches = 0
     y = model.fit_transform(x)
@@ -478,9 +634,9 @@ def phase_pca_f32(ctx):
 
     k2 = ctx.k2
     x = make_data(ctx.dev, N32, D32, torch.float32, SEED + 5)
-    exact_model(ctx).fit(x)  # warm-up
+    exact_model(ctx.api, CUDA).fit(x)  # warm-up
     fit_ms, launches, model = timed_fits(
-        lambda: exact_model(ctx), x, {"jacobi_svd": k2}
+        lambda: exact_model(ctx.api, CUDA), x, {"jacobi_svd": k2}
     )
     ctx.add_launches(launches)
     x64 = x.double()
@@ -504,24 +660,21 @@ def phase_randomized_f64(ctx):
     import torch
 
     k3 = ctx.k3
-    x = make_data(ctx.dev, NR, DR, torch.float64, SEED + 6)
+    ctx.xr = x = randomized64_data(ctx.dev)
 
     def model():
-        return ctx.api.RandomizedPca(K, seed=SEED, device=CUDA)
+        return randomized_model(ctx.api, CUDA)
 
-    with capturing(k3, "jacobi_svd_vmem_f64") as panels:
-        model().fit(x)  # warm-up; hands phase K3 the fit's Bᵀ
-    require(len(panels) == 1 and tuple(panels[0].shape) == (DR, L),
+    (bt,) = k3_inputs(k3, model, x, 1)  # warm-up; hands phase K3 its Bᵀ
+    require(tuple(bt.shape) == (DR, L),
             "the f64 randomized fit did not run K3 on Bᵀ")
-    ctx.k3_cases["bt_1024x42"] = panels[0]
+    ctx.k3_cases["bt_1024x42"] = bt
     fit_ms, launches, fitted = timed_fits(model, x, {"jacobi_svd_f64": k3})
     require(launches["jacobi_svd_f64"] == 3, "K3 not once per fit")
     ctx.add_launches(launches)
-    s_ref = sigma_of_centered_gram(x)
+    ctx.sigma_r = s_ref = sigma_of_centered_gram(x)
     sig = float(((fitted.singular_values_ - s_ref).abs() / s_ref).max())
     require(sig <= 1e-4, f"f64 randomized σ relative error {sig} > 1e-4")
-    del x
-    torch.cuda.empty_cache()
     return {"phase": "randomized_f64", "x": [NR, DR], "k": K,
             "route": "mixed finder, data-side recovery, K3 on Bᵀ",
             "fit_ms": fit_ms, "fit_ms_median": statistics.median(fit_ms),
@@ -529,43 +682,106 @@ def phase_randomized_f64(ctx):
 
 
 @phase
+def phase_gram_recovery_f64(ctx):
+    """The same table through the zero-pass Gram recovery in float64:
+    its two 42×42 PSD eighs are K3, twice per fit."""
+    import torch
+
+    k3, x = ctx.k3, ctx.xr
+    panels = k3_inputs(k3, lambda: gram_recovery_model(ctx.api, CUDA), x, 2)
+    require(all(tuple(p.shape) == (L, L) for p in panels),
+            "the Gram-recovery fit did not run K3 on its two l×l eighs")
+    ctx.k3_cases["gram_recovery_eigh_42x42"] = panels[0]
+    fit_ms, launches, fitted = timed_fits(
+        lambda: gram_recovery_model(ctx.api, CUDA), x, {"jacobi_svd_f64": k3}
+    )
+    require(launches["jacobi_svd_f64"] == 6, "K3 not twice per fit")
+    ctx.add_launches(launches)
+    s_ref = ctx.sigma_r
+    sig = float(((fitted.singular_values_ - s_ref).abs() / s_ref).max())
+    require(sig <= 1e-4, f"Gram-recovery σ relative error {sig} > 1e-4")
+    del ctx.xr
+    torch.cuda.empty_cache()
+    return {"phase": "gram_recovery_f64", "x": [NR, DR], "k": K,
+            "route": "f64 finder, zero-pass Gram recovery, K3 eighs",
+            "fit_ms": fit_ms, "fit_ms_median": statistics.median(fit_ms),
+            "launches_per_3_fits": launches, "sigma_rel_err_vs_f64": sig}
+
+
+# The panels K3 is timed on, and the one PyTorch call for each: eigh on
+# the PSD matrices (as the eigh route uses them), the SVD elsewhere.
+K3_TIMED = {
+    "r_factor_256x256": "svd",
+    "psd_gram_256x256": "eigh",
+    "gram_recovery_eigh_42x42": "eigh",
+    "config1_centered_1000x64": "svd",
+    "bt_1024x42": "svd",
+    "split_10000x50": "svd",
+}
+
+
+@phase
 def phase_k3(ctx):
-    """K3 against its plain version and float64 singular values, on the
-    panels the fits handed it and a rank-5 one."""
+    """K3 against its block plain version and float64 singular values,
+    on the panels the fits handed it, ``split_panel`` and a rank-5 one; the time of each
+    panel beside its plain version, one PyTorch call and its bound (at
+    the fewer sweeps of the kernel's and the TPU kernel's order's)."""
     import torch
 
     k3, g = ctx.k3, ctx.g
     g.manual_seed(SEED + 7)
     f64 = torch.float64
-    cases = dict(ctx.k3_cases)
+    cases = dict(ctx.k3_cases, split_10000x50=split_panel(ctx.dev))
     cases["rank5_1000x64"] = (
         torch.randn(1000, 5, generator=g, device=ctx.dev, dtype=f64)
         @ torch.randn(5, 64, generator=g, device=ctx.dev, dtype=f64)
     )
+
+    def block_plain(p):
+        return k3._jacobi_svd_block_plain_f64(p, 30, k3.plan(*p.shape)[0])
+
+    def tpu_order(p, max_sweeps):
+        return k3._jacobi_svd_plain_f64(p, max_sweeps)
+
     report, err_max = {}, 0.0
     for name, a in cases.items():
         report[name], err = check_jacobi(
-            f"K3 {name}", a, k3.jacobi_svd_vmem_f64,
-            lambda p: k3._jacobi_svd_plain_f64(p, 30), k3._tol(*a.shape),
-            1e-11, 1e-11, 1e-12,
+            f"K3 {name}", a, k3.jacobi_svd_vmem_f64, block_plain,
+            k3._tol(*a.shape), 1e-11, 1e-11, 1e-12,
         )
         err_max = max(err_max, err)
     times = {}
-    for name in ("r_factor_256x256", "bt_1024x42"):
+    for name, call in K3_TIMED.items():
         a = cases[name]
+        library = (functools.partial(torch.linalg.eigh, a) if call == "eigh"
+                   else functools.partial(torch.linalg.svd, a,
+                                          full_matrices=False,
+                                          driver="gesvd"))
+        tol = k3._tol(*a.shape)
+        sweeps = sweeps_to_converge(k3.jacobi_svd_vmem_f64, a, tol)
+        sweeps_tpu = sweeps_to_converge(tpu_order, a, tol)
+        bound_ms, bound_by = jacobi_bound(a, min(sweeps, sweeps_tpu))
         times[name] = {
+            "plan_w_P_R": list(k3.plan(*a.shape)[:3]),
             "ms": cuda_ms(lambda: k3.jacobi_svd_vmem_f64(a), 20),
-            "plain_ms": cuda_ms(lambda: k3._jacobi_svd_plain_f64(a, 30), 3),
+            "plain_ms": cuda_ms(lambda: block_plain(a), 1),
+            "library_ms": cuda_ms(library, 20),
+            "library": f"torch.linalg.{call}",
+            "sweeps": sweeps, "sweeps_tpu_order": sweeps_tpu,
+            "bound_ms": bound_ms, "bound_by": bound_by,
         }
     ctx.kernels["jacobi_svd_f64"].update(
-        max_abs_err=err_max, **times["r_factor_256x256"]
+        max_abs_err=err_max,
+        **{key: times["r_factor_256x256"][key]
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "bound_by")},
     )
     return {"phase": "k3_vs_plain", "cases": report, "times": times}
 
 
 PHASES = (phase_k1, phase_slice, phase_k2, phase_default, phase_pca_f64,
           phase_pca_f64_gram, phase_config1, phase_pca_f32,
-          phase_randomized_f64, phase_k3)
+          phase_randomized_f64, phase_gram_recovery_f64, phase_k3)
 
 KERNELS = {
     "sketch_moments": ("sketch_moments.cu", "sketch_kernel.py:143"),
@@ -624,6 +840,8 @@ def kernels_line(ctx) -> dict:
             "replaces": f"petal_decomposition_tpu/ops/pallas/{replaces}",
             "launches": k["launches"], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
         })
     return {"kernels": out}
 

@@ -26,15 +26,23 @@ __all__ = [
 
 
 def default_device() -> torch.device:
-    """CUDA when a card is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device of a model built without ``device=``: the card.  The
+    CPU is taken only when the caller asks for it; with no card, the
+    model's fit raises (:func:`as_matrix`)."""
+    return torch.device("cuda")
 
 
 def as_matrix(x, device, complex_ok: bool = False) -> torch.Tensor:
     """Coerce input (numpy, tensor, nested lists) to a contiguous 2-D
     floating tensor on ``device``; integers and booleans become float64,
     as in the JAX package.  Complex input raises unless ``complex_ok``
-    (the models whose fits take it)."""
+    (the models whose fits take it).  A CUDA ``device`` on a machine
+    without a card raises rather than running on the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to fit on "
+            "the CPU"
+        )
     if isinstance(x, torch.Tensor):
         t = x
     else:

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 
 _locks_lock = threading.Lock()
 _locks: dict[str, threading.Lock] = {}
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -53,7 +53,12 @@ def _nvcc() -> str:
 
 def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     """Compile (once per source hash) and load ``csrc/<sources>`` as
-    ``lib<name>-<hash>.so``."""
+    ``lib<name>-<hash>.so``.  A library loaded once is returned again
+    without reading its sources: the wrappers call this on every launch."""
+    key = (name, sources)
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in paths:
@@ -63,8 +68,8 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
-        if str(lib_path) in _loaded:
-            return _loaded[str(lib_path)]
+        if key in _loaded:
+            return _loaded[key]
         if not lib_path.is_file():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -83,7 +88,7 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         lib.petal_error_string.argtypes = [ctypes.c_int]
         lib.petal_error_string.restype = ctypes.c_char_p
-        _loaded[str(lib_path)] = lib
+        _loaded[key] = lib
         return lib
 
 

@@ -106,6 +106,22 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def _rotation(app, aqq, apq, eps: float):
+    """The kernels' rotation ``(c, s)`` of each column pair from its
+    dot products: the identity where |apq| ≤ ``eps``·√(app·aqq) (which
+    also covers zero columns), else the Jacobi rotation that zeroes
+    apq."""
+    skip = apq.abs() <= eps * torch.sqrt(app * aqq)
+    sgn = torch.where(apq >= 0, 1.0, -1.0).to(apq.dtype)
+    absq = torch.where(skip, 1.0, apq.abs())
+    tau = (aqq - app) / (2.0 * absq)
+    t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+    t = torch.where(tau == 0, 1.0, t)
+    t = torch.where(skip, 0.0, t * sgn)
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    return c, c * t
+
+
 def _jacobi_svd_plain(a: torch.Tensor, max_sweeps: int, eps: float = EPS,
                       tol_eps: float = EPS):
     """The TPU kernel's arithmetic in vectorized PyTorch: ``(a_rot, v,
@@ -138,15 +154,8 @@ def _jacobi_svd_plain(a: torch.Tensor, max_sweeps: int, eps: float = EPS,
             norm2max = torch.maximum(app.max(), aqq.max())
             rel = apq.abs() / torch.where(norm2max > 0, norm2max, 1.0)
             off_t = torch.maximum(off_t, rel.max())
-            skip = apq.abs() <= eps * torch.sqrt(app * aqq)
-            sgn = torch.where(apq >= 0, 1.0, -1.0).to(dt)
-            absq = torch.where(skip, 1.0, apq.abs())
-            tau = (aqq - app) / (2.0 * absq)
-            t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
-            t = torch.where(tau == 0, 1.0, t)
-            t = torch.where(skip, 0.0, t * sgn)
-            c = (1.0 / torch.sqrt(1.0 + t * t))[:, None]
-            s = c * t[:, None]
+            c, s = _rotation(app, aqq, apq, eps)
+            c, s = c[:, None], s[:, None]
             at[p], at[q] = c * xl - s * xr, s * xl + c * xr
             vl, vr = vt[p], vt[q]
             vt[p], vt[q] = c * vl - s * vr, s * vl + c * vr

@@ -1,7 +1,12 @@
-"""The PyTorch port imports neither JAX nor Triton."""
+"""The PyTorch port imports neither JAX nor Triton, its public surface,
+and its default device."""
 
 import subprocess
 import sys
+
+import numpy as np
+import pytest
+import torch
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -35,3 +40,32 @@ def test_public_api():
     assert issubclass(pt.LinalgError, pt.DecompositionError)
     assert str(pt.InvalidInput("x")) == str(jax_errors.InvalidInput("x"))
     assert str(pt.LinalgError("y")) == str(jax_errors.LinalgError("y"))
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda pt: pt.Pca(2),
+        lambda pt: pt.Pca.new(2),
+        lambda pt: pt.PcaBuilder(2).build(),
+        lambda pt: pt.RandomizedPca(2, seed=0),
+        lambda pt: pt.RandomizedPca.with_seed(2, 0),
+        lambda pt: pt.RandomizedPcaBuilder(2).seed(0).build(),
+    ],
+    ids=["Pca", "Pca.new", "PcaBuilder", "RandomizedPca",
+         "RandomizedPca.with_seed", "RandomizedPcaBuilder"],
+)
+def test_default_device_is_the_card(monkeypatch, make):
+    """A model built without ``device=`` resolves to CUDA; on a machine
+    with no card its fit raises instead of running on the CPU."""
+    import petal_decomposition_tpu_torch as pt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = make(pt)
+    assert model.device == torch.device("cuda")
+    x = np.arange(24.0).reshape(8, 3) ** 1.5
+    for fit in (model.fit, model.fit_transform):
+        with pytest.raises(RuntimeError, match='pass device="cpu"'):
+            fit(x)
+    cpu = type(model)(2, device="cpu")
+    assert cpu.fit_transform(x).shape == (8, 2)
