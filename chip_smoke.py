@@ -25,10 +25,13 @@ numbers and its time; any failed check raises, so the exit code is
 non-zero.  The line before the card's name holds each kernel's time,
 its plain version's, one PyTorch call's for the same function where
 there is one, and its bound: the larger of the bytes it must move over
-3.35 TB/s and its operations (for the Jacobi kernels, this run's sweeps
-of n(n−1)/2 column pairs each, the fewer of the kernel's and the TPU
-kernel's order's) over 67 TFLOP/s, float32 outside the tensor cores or
-float64 on them (NVIDIA's H100 SXM data sheet).  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+3.35 TB/s and its operations over the peak rate of their type (NVIDIA's
+H100 SXM data sheet): K1's split product at 989 TFLOP/s, bf16 on the
+tensor cores, and its moments at 67 TFLOP/s, float32 outside them; the
+Jacobi kernels' rotations (this run's sweeps of n(n−1)/2 column pairs
+each, the fewer of the kernel's and the TPU kernel's order's) at
+67 TFLOP/s, float32 outside the tensor cores or float64 on them.  The
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script fails before printing any
 result.
 """
@@ -53,8 +56,8 @@ N32, D32 = 1_000_000, 64  # the exact float32 fit
 CUDA = "cuda"
 HBM_BYTES_S = 3.35e12
 # NVIDIA's H100 SXM data sheet: float32 outside the tensor cores, float64
-# on them (DMMA; 34 outside them).
-PEAK_FLOP_S = {"float32": 67e12, "float64": 67e12}
+# on them (DMMA; 34 outside them), bf16 on them (dense).
+PEAK_FLOP_S = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
 
 
 def emit(obj) -> None:
@@ -151,11 +154,12 @@ def rel_max(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def bound(nbytes: float, flops: dict):
     """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
-    and operations over the peak rate of ``dtype``."""
+    and the operations (type → count) over the peak rates of their
+    types."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    t_ops = sum(f / PEAK_FLOP_S[t] for t, f in flops.items()) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -181,7 +185,7 @@ def jacobi_bound(a, sweeps: int):
     m, n = a.shape
     size = a.element_size()
     flops = sweeps * n * (n - 1) / 2 * (12 * m + 6 * n)
-    return bound(size * (2 * m * n + n * n), flops, str(a.dtype)[6:])
+    return bound(size * (2 * m * n + n * n), {str(a.dtype)[6:]: flops})
 
 
 def pca64_data(dev):
@@ -380,8 +384,11 @@ def phase_k1(ctx):
     # No one PyTorch call computes Y, the column sums and ‖X‖²_F; the
     # product alone is timed beside it.
     matmul_ms = cuda_ms(lambda: x @ w, 20)
+    # Three bf16 products on the tensor cores; the sums and squares in
+    # float32 outside them.
     bound_ms, bound_by = bound(4 * (N * D + D * L + N * L + D + 1),
-                               2 * N * D * L + 3 * N * D, "float32")
+                               {"bfloat16": 3 * 2 * N * D * L,
+                                "float32": 3 * N * D})
     ctx.kernels["sketch_moments"].update(
         max_abs_err=y_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None,
@@ -390,7 +397,8 @@ def phase_k1(ctx):
             "y_max_abs_err": y_err, "y_band": y_band,
             "sqnorm_rel_err": sq_rel, "ms": ms, "plain_ms": plain_ms,
             "x_times_w_ms": matmul_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "ms_over_x_times_w": ms / matmul_ms}
 
 
 @phase
