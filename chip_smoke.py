@@ -14,13 +14,17 @@ through the entry points a user calls:
 * exact ``Pca`` on a 200,000 × 256 float64 feature table, k = 32,
   through QR + K3 on R and through the Gram solver with K3 as its
   eigensolver; BASELINE config 1 (1000 × 64 float64, direct K3); a
-  1,000,000 × 64 float32 fit through QR + K2 on R;
+  1,000,000 × 64 float32 fit through QR + K2 on R; the 200,000 × 256
+  table in float32 through the default solver (QR + K2 on the 256×256
+  R) and through the Gram solver;
 * ``RandomizedPca`` at BASELINE config 2 (100,000 × 1024 float64,
   k = 32, default knobs), whose SVD of Bᵀ is K3, and the same table
   through the zero-pass Gram recovery, whose two 42×42 eighs are K3.
 
-Each path is driven with the kernels' launch counts set to 0 just before
-it and read just after.  Every phase prints one JSON line with its
+K2 and K3 are then timed on the panels those fits hand them and a few
+more (``K2_TIMED``, ``K3_TIMED``).  Each path is driven with the
+kernels' launch counts set to 0 just before it and read just after.
+Every phase prints one JSON line with its
 numbers and its time; any failed check raises, so the exit code is
 non-zero.  The line before the card's name holds each kernel's time,
 its plain version's, one PyTorch call's for the same function where
@@ -41,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -53,6 +58,7 @@ L = K + 10  # the fit's sketch width (k + n_oversamples)
 N64, D64 = 200_000, 256  # the exact float64 fit's feature table
 NR, DR = 100_000, 1024  # BASELINE config 2, the float64 randomized fit
 N32, D32 = 1_000_000, 64  # the exact float32 fit
+N32W, D32W = 200_000, 256  # the exact float32 fit on the feature table
 CUDA = "cuda"
 HBM_BYTES_S = 3.35e12
 # NVIDIA's H100 SXM data sheet: float32 outside the tensor cores, float64
@@ -150,6 +156,11 @@ def capturing(module, name):
         setattr(module, name, real)
 
 
+# The Jacobi wrapper of each kernel module, by the module's name.
+JACOBI_WRAPPERS = {"jacobi_kernels": "jacobi_svd_vmem",
+                   "jacobi_f64_kernel": "jacobi_svd_vmem_f64"}
+
+
 def rel_max(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
@@ -195,6 +206,28 @@ def pca64_data(dev):
     return make_data(dev, N64, D64, torch.float64, SEED + 3)
 
 
+def pca32_data(dev):
+    """The exact float32 fit's 1,000,000 × 64 table."""
+    import torch
+
+    return make_data(dev, N32, D32, torch.float32, SEED + 5)
+
+
+def pca32w_data(dev):
+    """The 200,000 × 256 feature table in float32 (≈ 205 MB)."""
+    import torch
+
+    return make_data(dev, N32W, D32W, torch.float32, SEED + 9)
+
+
+def r632_data(dev):
+    """A 20,000 × 632 float32 table, whose exact fit hands K2 the widest
+    R factor within its reach."""
+    import torch
+
+    return make_data(dev, 20_000, 632, torch.float32, SEED + 10)
+
+
 def config1_data(dev):
     """BASELINE config 1's table: 1000 × 64 float64 Gaussian."""
     import torch
@@ -212,23 +245,30 @@ def randomized64_data(dev):
     return make_data(dev, NR, DR, torch.float64, SEED + 6)
 
 
-def split_panel(dev):
-    """A centered 10,000 × 50 float64 Gaussian panel with column scales
-    1 to 5, as an exact fit of such a table hands it to K3: the plan
-    splits its columns over two block pairs and each pair's rows over
-    23 CTAs."""
+def split_panel(dev, dtype=None, rows=10_000):
+    """A centered ``rows`` × 50 Gaussian panel (float64 by default) with
+    column scales 1 to 5, as an exact fit of such a table hands it to
+    the Jacobi kernel directly: K3's plan splits 10,000 × 50 over two
+    block pairs and each pair's rows over 23 CTAs, K2's 20,000 × 50 the
+    same way (a float32 thread holds twice the rows)."""
     import torch
 
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 8)
-    f64 = torch.float64
-    x = (torch.randn(10_000, 50, generator=g, device=dev, dtype=f64)
-         * torch.linspace(1, 5, 50, device=dev, dtype=f64))
+    dtype = dtype or torch.float64
+    x = (torch.randn(rows, 50, generator=g, device=dev, dtype=dtype)
+         * torch.linspace(1, 5, 50, device=dev, dtype=dtype))
     return x - x.mean(0)
 
 
 def exact_model(api, dev, solver="full"):
     return api.PcaBuilder(K).solver(solver).device(dev).build()
+
+
+def data_route_model(api, dev):
+    """The float32 slice's route: the sketch through K1, Bᵀ through K2."""
+    return (api.RandomizedPcaBuilder(K).seed(SEED).range_finder("gram")
+            .gram_projection("data").device(dev).build())
 
 
 def randomized_model(api, dev):
@@ -243,13 +283,36 @@ def gram_recovery_model(api, dev):
             .build())
 
 
-def k3_inputs(k3, make, x, count):
+def kernel_inputs(mod, make, x, count):
     """Fit ``make()`` on ``x`` once and return the ``count`` panels the
-    fit handed K3."""
-    with capturing(k3, "jacobi_svd_vmem_f64") as seen:
+    fit handed the Jacobi kernel of ``mod`` (K2's or K3's module); any
+    number where ``count`` is None."""
+    name = JACOBI_WRAPPERS[mod.__name__.rsplit(".", 1)[1]]
+    with capturing(mod, name) as seen:
         make().fit(x)
-    require(len(seen) == count, f"a fit ran K3 {len(seen)} times, not {count}")
+    require(count is None or len(seen) == count,
+            f"a fit ran {name} {len(seen)} times, not {count}")
     return seen
+
+
+def fit_panels(mod, fits, dev, on_fit=None, strict=True):
+    """The first panel each fit of ``fits`` (panel name → (data, make,
+    count)) hands the Jacobi kernel of ``mod``, one table on the card at
+    a time; not ``strict``, a fit whose route runs no such kernel (an
+    older tree's) hands none.  ``on_fit(name, make, x)`` is called after
+    each capture."""
+    panels, table = {}, {}
+    for name, (data, make, count) in fits.items():
+        if data not in table:
+            table.clear()
+            table[data] = data(dev)
+        seen = kernel_inputs(mod, make, table[data], count if strict else None)
+        if seen:
+            panels[name] = seen[0]
+        if on_fit is not None:
+            on_fit(name, make, table[data])
+    table.clear()
+    return panels
 
 
 def k3_panels(api, k3, dev, on_fit=None):
@@ -260,7 +323,7 @@ def k3_panels(api, k3, dev, on_fit=None):
     recovery, config 1's centered 1000×64 panel (direct K3) and
     ``split_panel``.  ``on_fit(name, make, x)`` is called after each
     fit's capture."""
-    fits = {
+    panels = fit_panels(k3, {
         "r_factor_256x256": (pca64_data, lambda: exact_model(api, dev), 1),
         "psd_gram_256x256": (
             pca64_data, lambda: exact_model(api, dev, "gram"), 1),
@@ -268,19 +331,44 @@ def k3_panels(api, k3, dev, on_fit=None):
             randomized64_data, lambda: randomized_model(api, dev), 1),
         "gram_recovery_eigh_42x42": (
             randomized64_data, lambda: gram_recovery_model(api, dev), 2),
-    }
-    panels, table = {}, {}
-    for name, (data, make, count) in fits.items():
-        if data not in table:
-            table.clear()  # one table on the card at a time
-            table[data] = data(dev)
-        panels[name] = k3_inputs(k3, make, table[data], count)[0]
-        if on_fit is not None:
-            on_fit(name, make, table[data])
-    table.clear()
+    }, dev, on_fit)
     x = config1_data(dev)
     panels["config1_centered_1000x64"] = x - x.mean(0)
     panels["split_10000x50"] = split_panel(dev)
+    return panels
+
+
+def k2_more_panels(api, k2, dev, on_fit=None, strict=True):
+    """The panels K2 is timed on beside those the smoke run's main fits
+    hand it: the 632×632 R of exact ``Pca(32)`` on a 20,000 × 632
+    float32 table (QR + K2, the widest R within reach), config 1's
+    centered table in float32 (1000×64, direct K2) and ``split_panel``
+    in float32 at 20,000 rows (rows split over CTAs)."""
+    import torch
+
+    panels = fit_panels(k2, {
+        "r_factor_632x632": (r632_data, lambda: exact_model(api, dev), 1),
+    }, dev, on_fit, strict)
+    x = config1_data(dev).float()
+    panels["config1_f32_1000x64"] = x - x.mean(0)
+    panels["split_20000x50"] = split_panel(dev, torch.float32, 20_000)
+    return panels
+
+
+def k2_panels(api, k2, dev, on_fit=None, strict=True):
+    """The panels K2 is timed on (``K2_TIMED``), from the fits that hand
+    them over: Bᵀ 1024×43 of the data-route ``RandomizedPca`` on the
+    1M×1024 table, the 64×64 R of exact ``Pca(32)`` on the 1M×64 float32
+    table, the 256×256 R of exact ``Pca(32)`` on the 200k×256 float32
+    table (default solver), and :func:`k2_more_panels`.  ``strict``: as
+    :func:`fit_panels`."""
+    panels = fit_panels(k2, {
+        "bt_1024x43": (make_data, lambda: data_route_model(api, dev), 1),
+        "r_factor_64x64": (pca32_data, lambda: exact_model(api, dev), 1),
+        "r_factor_256x256": (
+            pca32w_data, lambda: exact_model(api, dev, "auto"), 1),
+    }, dev, on_fit, strict)
+    panels.update(k2_more_panels(api, k2, dev, on_fit, strict))
     return panels
 
 
@@ -409,14 +497,10 @@ def phase_slice(ctx):
     k1, k2, x = ctx.k1, ctx.k2, ctx.x
 
     def slice_model():
-        return (ctx.api.RandomizedPcaBuilder(K).seed(SEED)
-                .range_finder("gram").gram_projection("data")
-                .device(CUDA).build())
+        return data_route_model(ctx.api, CUDA)
 
-    with capturing(k2, "jacobi_svd_vmem") as panels:
-        slice_model().fit(x)  # warm-up; hands phase K2 the fit's panel
-    require(len(panels) == 1, "the fit did not reach the Jacobi kernel")
-    ctx.k2_panel = panels[0]
+    # The warm-up hands phase K2 the fit's panel.
+    (ctx.k2_cases["bt_1024x43"],) = kernel_inputs(k2, slice_model, x, 1)
     fit_ms, launches, model = timed_fits(
         slice_model, x, {"sketch_moments": k1, "jacobi_svd": k2}
     )
@@ -442,45 +526,6 @@ def phase_slice(ctx):
             "fit_ms_median": statistics.median(fit_ms),
             "launches_per_3_fits": launches,
             "sigma_rel_err_vs_f64": sig_rel, "fit_transform_rel_err": ft_err}
-
-
-@phase
-def phase_k2(ctx):
-    """K2 against its plain version and float64 singular values."""
-    import torch
-
-    k2, g, dev = ctx.k2, ctx.g, ctx.dev
-    g.manual_seed(SEED + 2)
-    cases = {
-        "fit_panel": ctx.k2_panel,
-        "random_1024x44": torch.randn(1024, 44, generator=g, device=dev),
-        "rank5_1024x44": torch.randn(1024, 5, generator=g, device=dev)
-        @ torch.randn(5, 44, generator=g, device=dev),
-    }
-    report, err_max = {}, 0.0
-    for name, a in cases.items():
-        report[name], err = check_jacobi(
-            f"K2 {name}", a, k2.jacobi_svd_vmem,
-            lambda p: k2._jacobi_svd_plain(p, 30), k2._tol(*a.shape),
-            1e-5, 1e-5, 1e-5,
-        )
-        err_max = max(err_max, err)
-    panel = cases["fit_panel"]
-    ms = cuda_ms(lambda: k2.jacobi_svd_vmem(panel), 20)
-    plain_ms = cuda_ms(lambda: k2._jacobi_svd_plain(panel, 30), 3)
-    library_ms = cuda_ms(lambda: torch.linalg.svd(
-        panel, full_matrices=False, driver="gesvd"), 20)
-    sweeps = sweeps_to_converge(k2.jacobi_svd_vmem, panel,
-                                k2._tol(*panel.shape))
-    bound_ms, bound_by = jacobi_bound(panel, sweeps)
-    ctx.kernels["jacobi_svd"].update(
-        max_abs_err=err_max, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
-    )
-    return {"phase": "k2_vs_plain", "cases": report,
-            "fit_panel": list(panel.shape), "ms": ms, "plain_ms": plain_ms,
-            "gesvd_ms": library_ms, "sweeps": sweeps, "bound_ms": bound_ms,
-            "bound_by": bound_by}
 
 
 @phase
@@ -524,7 +569,7 @@ def phase_pca_f64(ctx):
     def make():
         return exact_model(ctx.api, CUDA)
 
-    (r_panel,) = k3_inputs(k3, make, x64, 1)  # warm-up; hands phase K3 its R
+    (r_panel,) = kernel_inputs(k3, make, x64, 1)  # warm-up; hands phase K3 its R
     require(tuple(r_panel.shape) == (D64, D64),
             "the exact f64 fit did not run K3 on the 256×256 R")
     ctx.k3_cases["r_factor_256x256"] = r_panel
@@ -579,7 +624,7 @@ def phase_pca_f64_gram(ctx):
     def make():
         return exact_model(ctx.api, CUDA, "gram")
 
-    (psd,) = k3_inputs(k3, make, x64, 1)  # warm-up
+    (psd,) = kernel_inputs(k3, make, x64, 1)  # warm-up
     require(tuple(psd.shape) == (D64, D64),
             "the Gram fit did not run K3 on the 256×256 Gram")
     ctx.k3_cases["psd_gram_256x256"] = psd
@@ -641,11 +686,16 @@ def phase_pca_f32(ctx):
     import torch
 
     k2 = ctx.k2
-    x = make_data(ctx.dev, N32, D32, torch.float32, SEED + 5)
-    exact_model(ctx.api, CUDA).fit(x)  # warm-up
-    fit_ms, launches, model = timed_fits(
-        lambda: exact_model(ctx.api, CUDA), x, {"jacobi_svd": k2}
-    )
+    x = pca32_data(ctx.dev)
+
+    def make():
+        return exact_model(ctx.api, CUDA)
+
+    (r_panel,) = kernel_inputs(k2, make, x, 1)  # warm-up; hands phase K2 R
+    require(tuple(r_panel.shape) == (D32, D32),
+            "the exact f32 fit did not run K2 on the 64×64 R")
+    ctx.k2_cases["r_factor_64x64"] = r_panel
+    fit_ms, launches, model = timed_fits(make, x, {"jacobi_svd": k2})
     ctx.add_launches(launches)
     x64 = x.double()
     s_ref = torch.linalg.svdvals(x64 - x64.mean(0))[:K]
@@ -662,6 +712,57 @@ def phase_pca_f32(ctx):
 
 
 @phase
+def phase_pca_f32_wide(ctx):
+    """Exact Pca, float32, 200k × 256 on the default solver: QR + K2 on
+    the 256×256 R (the JAX package's route, now that K2 reaches a 632×632
+    R), once a fit; beside it the Gram solver, whose σ square through
+    XᵀX.  σ against float64: the QR route within 1e-5, the Gram route's
+    error recorded."""
+    import torch
+
+    k2 = ctx.k2
+    x = pca32w_data(ctx.dev)
+
+    def make():
+        return exact_model(ctx.api, CUDA, "auto")
+
+    def make_gram():
+        return exact_model(ctx.api, CUDA, "gram")
+
+    (r_panel,) = kernel_inputs(k2, make, x, 1)  # warm-up; hands phase K2 R
+    require(tuple(r_panel.shape) == (D32W, D32W),
+            "the f32 auto fit did not run K2 on the 256×256 R")
+    ctx.k2_cases["r_factor_256x256"] = r_panel
+    fit_ms, launches, model = timed_fits(make, x, {"jacobi_svd": k2})
+    require(launches["jacobi_svd"] == 3, "K2 not once per fit")
+    ctx.add_launches(launches)
+    x64 = x.double()
+    s_ref = torch.linalg.svdvals(x64 - x64.mean(0))[:K]
+    del x64
+
+    def sigma_err(fitted):
+        s = fitted.singular_values_.double()
+        return float(((s - s_ref).abs() / s_ref).max())
+
+    sig = sigma_err(model)
+    require(sig <= 1e-5, f"exact f32 QR + K2 σ relative error {sig} > 1e-5")
+    make_gram().fit(x)  # warm-up
+    gram_ms, _, gram_model = timed_fits(make_gram, x, {})
+    sig_gram = sigma_err(gram_model)
+    require(math.isfinite(sig_gram), "Gram-route σ is not finite")
+    stages = qr_route_stages(x, k2.jacobi_svd_vmem)
+    del x
+    torch.cuda.empty_cache()
+    return {"phase": "pca_f32_wide", "x": [N32W, D32W], "k": K,
+            "route": "QR + K2 on R (solver auto)", "fit_ms": fit_ms,
+            "fit_ms_median": statistics.median(fit_ms), "stages_ms": stages,
+            "launches_per_3_fits": launches, "sigma_rel_err_vs_f64": sig,
+            "gram_fit_ms": gram_ms,
+            "gram_fit_ms_median": statistics.median(gram_ms),
+            "gram_sigma_rel_err_vs_f64": sig_gram}
+
+
+@phase
 def phase_randomized_f64(ctx):
     """BASELINE config 2: RandomizedPca on 100k × 1024 float64 at the
     default knobs; its SVD of Bᵀ is K3, once per fit."""
@@ -673,7 +774,7 @@ def phase_randomized_f64(ctx):
     def model():
         return randomized_model(ctx.api, CUDA)
 
-    (bt,) = k3_inputs(k3, model, x, 1)  # warm-up; hands phase K3 its Bᵀ
+    (bt,) = kernel_inputs(k3, model, x, 1)  # warm-up; hands phase K3 its Bᵀ
     require(tuple(bt.shape) == (DR, L),
             "the f64 randomized fit did not run K3 on Bᵀ")
     ctx.k3_cases["bt_1024x42"] = bt
@@ -696,7 +797,7 @@ def phase_gram_recovery_f64(ctx):
     import torch
 
     k3, x = ctx.k3, ctx.xr
-    panels = k3_inputs(k3, lambda: gram_recovery_model(ctx.api, CUDA), x, 2)
+    panels = kernel_inputs(k3, lambda: gram_recovery_model(ctx.api, CUDA), x, 2)
     require(all(tuple(p.shape) == (L, L) for p in panels),
             "the Gram-recovery fit did not run K3 on its two l×l eighs")
     ctx.k3_cases["gram_recovery_eigh_42x42"] = panels[0]
@@ -714,6 +815,76 @@ def phase_gram_recovery_f64(ctx):
             "route": "f64 finder, zero-pass Gram recovery, K3 eighs",
             "fit_ms": fit_ms, "fit_ms_median": statistics.median(fit_ms),
             "launches_per_3_fits": launches, "sigma_rel_err_vs_f64": sig}
+
+
+# The panels K2 is timed on; the PyTorch call for each is the SVD.
+K2_TIMED = ("bt_1024x43", "r_factor_64x64", "config1_f32_1000x64",
+            "r_factor_256x256", "r_factor_632x632", "split_20000x50")
+
+
+def vector_band(n: int) -> float:
+    """K2's band for V's orthogonality and the reconstruction: 1e-5 up to
+    64 columns, then growing as √n, since the rounding of the ≈ n·sweeps
+    rotations each column of V sees adds up as a random walk."""
+    return 1e-5 * max(1.0, (n / 64) ** 0.5)
+
+
+@phase
+def phase_k2(ctx):
+    """K2 against its block plain version and float64 singular values,
+    on the panels the fits handed it, ``k2_more_panels`` and two of
+    1024×44; the time of each panel of ``K2_TIMED`` beside its plain
+    version, cuSOLVER's ``gesvd`` and its bound (at the fewer sweeps of
+    the kernel's and the TPU kernel's order's)."""
+    import torch
+
+    k2, g, dev = ctx.k2, ctx.g, ctx.dev
+    g.manual_seed(SEED + 2)
+    cases = dict(ctx.k2_cases, **k2_more_panels(ctx.api, k2, dev))
+    cases["random_1024x44"] = torch.randn(1024, 44, generator=g, device=dev)
+    cases["rank5_1024x44"] = (
+        torch.randn(1024, 5, generator=g, device=dev)
+        @ torch.randn(5, 44, generator=g, device=dev))
+
+    def block_plain(p):
+        return k2._jacobi_svd_block_plain(p, 30, k2.plan(*p.shape)[0])
+
+    def tpu_order(p, max_sweeps):
+        return k2._jacobi_svd_plain(p, max_sweeps)
+
+    report, err_max = {}, 0.0
+    for name, a in cases.items():
+        band = vector_band(a.shape[1])
+        report[name], err = check_jacobi(
+            f"K2 {name}", a, k2.jacobi_svd_vmem, block_plain,
+            k2._tol(*a.shape), 1e-5, band, band,
+        )
+        err_max = max(err_max, err)
+    times = {}
+    for name in K2_TIMED:
+        a = cases[name]
+        tol = k2._tol(*a.shape)
+        sweeps = sweeps_to_converge(k2.jacobi_svd_vmem, a, tol)
+        sweeps_tpu = sweeps_to_converge(tpu_order, a, tol)
+        bound_ms, bound_by = jacobi_bound(a, min(sweeps, sweeps_tpu))
+        times[name] = {
+            "shape": list(a.shape),
+            "plan_w_P_R": list(k2.plan(*a.shape)[:3]),
+            "ms": cuda_ms(lambda: k2.jacobi_svd_vmem(a), 20),
+            "plain_ms": cuda_ms(lambda: block_plain(a), 1),
+            "library_ms": cuda_ms(lambda: torch.linalg.svd(
+                a, full_matrices=False, driver="gesvd"), 20),
+            "library": "torch.linalg.svd gesvd",
+            "sweeps": sweeps, "sweeps_tpu_order": sweeps_tpu,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    ctx.kernels["jacobi_svd"].update(
+        max_abs_err=err_max,
+        **{key: times["bt_1024x43"][key]
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "bound_by")},
+    )
+    return {"phase": "k2_vs_plain", "cases": report, "times": times}
 
 
 # The panels K3 is timed on, and the one PyTorch call for each: eigh on
@@ -787,9 +958,10 @@ def phase_k3(ctx):
     return {"phase": "k3_vs_plain", "cases": report, "times": times}
 
 
-PHASES = (phase_k1, phase_slice, phase_k2, phase_default, phase_pca_f64,
+PHASES = (phase_k1, phase_slice, phase_default, phase_pca_f64,
           phase_pca_f64_gram, phase_config1, phase_pca_f32,
-          phase_randomized_f64, phase_gram_recovery_f64, phase_k3)
+          phase_pca_f32_wide, phase_randomized_f64, phase_gram_recovery_f64,
+          phase_k2, phase_k3)
 
 KERNELS = {
     "sketch_moments": ("sketch_moments.cu", "sketch_kernel.py:143"),
@@ -826,7 +998,7 @@ def context():
           "kernel_build_s": time.perf_counter() - t0})
     ctx = SimpleNamespace(
         api=api, linalg=linalg, k1=k1, k2=k2, k3=k3, smi=smi,
-        dev=torch.device(CUDA), k3_cases={},
+        dev=torch.device(CUDA), k2_cases={}, k3_cases={},
         kernels={name: {"launches": 0} for name in KERNELS},
     )
 

@@ -174,10 +174,11 @@ class Pca:
         """``auto`` takes the Gram/eigh route only for float32 on CUDA
         where neither K2 route reaches: not the direct panel
         (``supports(n, d)``) and not the d×d R factor of the tall QR
-        route (``supports(d_pad, d)``, which K2's 227 KB of shared memory
-        bounds at d ≤ 168), and only for n ≥ 8d, where one d×d Gram
-        replaces an n-row QR.  So float32 with d ≥ 169 and n ≥ 8d fits
-        through the Gram; narrower float32 panels, every float64 and
+        route (``supports(d_pad, d)``, which K2 takes up to d_pad = 632,
+        as the JAX kernel's gate does), and only for n ≥ 8d, where one
+        d×d Gram replaces an n-row QR.  So float32 with d ≥ 633 and
+        n ≥ 8d fits through the Gram, where the JAX package sends it;
+        narrower float32 panels, every float64 and
         complex fit, and every CPU fit take the SVD of the data.  The
         trade there: σ through the Gram square to ~eps·κ(X)²; pass
         ``solver="full"`` to force the direct SVD."""

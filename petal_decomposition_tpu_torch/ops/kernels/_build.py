@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
 Each kernel is a ``.cu`` file under the package's ``csrc/`` with a plain
-C interface.  At first use it is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library under ``build/torch_kernels/`` at
-the root of the checkout and loaded with ``ctypes``.  The library's
-file name carries a hash of its sources and flags, so an edited source
-rebuilds.  A failed build raises: no route falls back to the kernel's
+C interface; code two kernels share is a ``.cuh`` header there.  At
+first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library under ``build/torch_kernels/`` at the root of the
+checkout and loaded with ``ctypes``.  The library's file name carries a
+hash of its sources, the shared headers and the flags, so an edited
+source or header rebuilds.  A failed build raises: no route falls back to the kernel's
 plain PyTorch version on a CUDA tensor.  Each library has its own lock,
 so libraries built from several threads compile in parallel.
 """
@@ -21,7 +22,7 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "load_library", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "digest", "load_library", "check"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -51,20 +52,28 @@ def _nvcc() -> str:
     )
 
 
+def digest(sources: tuple[str, ...]) -> str:
+    """The build key of a library: a hash of the flags, of
+    ``csrc/<sources>`` and of every shared header ``csrc/*.cuh``, which
+    any source may include, so an edited header rebuilds each library."""
+    paths = [CSRC / s for s in sources] + sorted(CSRC.glob("*.cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
-    """Compile (once per source hash) and load ``csrc/<sources>`` as
-    ``lib<name>-<hash>.so``.  A library loaded once is returned again
+    """Compile (once per :func:`digest`) and load ``csrc/<sources>`` as
+    ``lib<name>-<digest>.so``.  A library loaded once is returned again
     without reading its sources: the wrappers call this on every launch."""
     key = (name, sources)
     lib = _loaded.get(key)
     if lib is not None:
         return lib
     paths = [CSRC / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    lib_path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    lib_path = BUILD_DIR / f"lib{name}-{digest(sources)}.so"
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:

@@ -1,12 +1,23 @@
-"""K2: one-sided Jacobi SVD of a float32 panel in one launch.
+"""K2: one-sided Jacobi SVD of a float32 panel, as a block Jacobi in one
+launch.
 
 The port of ``petal_decomposition_tpu/ops/pallas/jacobi_kernels.py``
-(``jacobi_svd_vmem``).  On a CUDA tensor the wrapper launches the
-hand-written Hopper kernel ``csrc/jacobi_svd.cu`` (one block, the whole
-panel in shared memory, every step and sweep in the launch); on a CPU
-tensor it runs :func:`_jacobi_svd_plain`, a vectorized PyTorch
-transcription of the TPU kernel with the same pairing, skip rule and
-convergence measure.  ``launches`` counts kernel launches.
+(``jacobi_svd_vmem``), which keeps the whole panel in VMEM.  A CTA's
+227 KB of shared memory cannot hold most of the panels K2 serves, so
+the Hopper kernel ``csrc/jacobi_svd.cu`` is the float32 instance of the
+block Jacobi in ``csrc/jacobi_block.cuh``, which K3 shares (see
+``jacobi_block.py``): blocks of w columns paired by the circle method,
+one cooperative CTA per block pair with its rows in registers, the
+whole panel on chip when it fits one CTA, and each block pair's rows
+split over R CTAs when they do not.  :func:`plan` picks (w, P, R),
+:func:`threads` the CTA's threads.
+
+On a CUDA tensor the wrapper launches that kernel (one launch per call);
+on a CPU tensor it runs :func:`_jacobi_svd_block_plain`, the same
+schedule in vectorized PyTorch.  :func:`_jacobi_svd_plain`, a
+transcription of the TPU kernel's own order, stays as the oracle of the
+tests.  Both plain versions take K3's constants too.  ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -17,30 +28,36 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, jacobi_block
+from .jacobi_block import MAX_CTAS, MAX_THREADS, MAX_W2, SMEM_BUDGET, _warps
 
-__all__ = ["jacobi_svd_vmem", "supports", "build", "launches"]
+__all__ = ["jacobi_svd_vmem", "supports", "plan", "build", "launches"]
 
-# Shared memory one block may use on Hopper (227 KB), less a margin for
-# the kernel's static shared variables.
-_SMEM_LIMIT = 232_448 - 1024
+# The kernel's reach: n_pad ≤ 632 and (m + n_pad)·n_pad·4 ≤ 4 MiB of
+# panel and V.  That holds every panel the JAX kernel's gate admits
+# (``ops/pallas/jacobi_kernels.py:157-170``: m·max(n_pad, 128) ≤ 400,000
+# and a 10 MiB working set, so a square R up to 632×632, 3125×128,
+# 1024×110) and every panel one CTA's shared memory held (28,924×2,
+# 10000×4); 632×632 needs 3.2 MB, the 1024×43 Bᵀ 0.2 MB.  Taller panels
+# take the QR route in ``ops/jacobi.py`` with K2 on their R.  The plan's
+# time model, in SM cycles (``jacobi_block.CycleModel``): a float32 FMA
+# takes a warp one cycle of its SM sub-partition.
+_MAX_N_PAD = 632
+_MAX_BYTES = 4 << 20
+_PLAN = jacobi_block.BlockPlan(
+    torch.float32, _MAX_N_PAD, _MAX_BYTES,
+    jacobi_block.CycleModel(step=700, fma=7, shfl=27, outer=6000, v_rate=64),
+)
+supports = _PLAN.supports
+rows_per_thread = _PLAN.rows_per_thread
+threads = _PLAN.threads
+smem_bytes = _PLAN.smem_bytes
+sweep_cycles = _PLAN.sweep_cycles
+plan = _PLAN.plan
+_fits = _PLAN.fits
+_panel_bytes = _PLAN.panel_bytes
 
 launches = 0
-
-
-def _smem_bytes(m: int, n: int) -> int:
-    n_pad = n + (n % 2)
-    return 4 * (n_pad * m + n_pad * n_pad + 2 * n_pad)
-
-
-def supports(m: int, n: int, dtype) -> bool:
-    """True when the kernel takes an m×n panel (m ≥ n, the caller's
-    orientation): float32, n ≥ 2, and the padded panel plus V fitting
-    one block's shared memory.  The flagship panel (Bᵀ, 1024×43 → 44
-    columns) needs 188 KB."""
-    if dtype != torch.float32 or n < 2 or m < n:
-        return False
-    return _smem_bytes(m, n) <= _SMEM_LIMIT
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,8 +116,8 @@ def build() -> ctypes.CDLL:
     """Compile (at first use) and load the kernel library."""
     lib = _build.load_library("petal_jacobi_svd", ("jacobi_svd.cu",))
     fn = lib.petal_jacobi_svd_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
@@ -122,14 +139,27 @@ def _rotation(app, aqq, apq, eps: float):
     return c, c * t
 
 
+def _rotate(x, y, c, s):
+    """The kernel's update of a column pair, (c·x − s·y, s·x + c·y).  In
+    float32 (K2) c is held as 1 + (c − 1), c − 1 = −s²/(1 + c), and the
+    two small terms are summed before x is added: c of a small rotation
+    rounds to 1, and c = 1 beside s = t would grow the pair's norm by
+    1 + t² each time, a drift that the thousands of small rotations of
+    the late sweeps add up (``csrc/jacobi_block.cuh``, ``rotate``)."""
+    if x.dtype == torch.float32:
+        cm1 = -(s * s) / (1.0 + c)
+        return x + (cm1 * x - s * y), y + (cm1 * y + s * x)
+    return c * x - s * y, s * x + c * y
+
+
 def _jacobi_svd_plain(a: torch.Tensor, max_sweeps: int, eps: float = EPS,
                       tol_eps: float = EPS):
     """The TPU kernel's arithmetic in vectorized PyTorch: ``(a_rot, v,
     off)`` with the same pair schedule, rotation, skip rule
     (|apq| ≤ ``eps``·√(app·aqq)) and per-sweep norm-wise ``off``,
     stopping at ``_tol(m, n, tol_eps)``.  Works at ``a``'s dtype; K3
-    runs it at float64 with its own constants.  Used for CPU tensors
-    and as the reference the kernels are held against on the card."""
+    runs it at float64 with its own constants.  The tests' oracle for
+    the TPU kernel's schedule."""
     m, n = a.shape
     n_pad = n + (n % 2)
     h = n_pad // 2
@@ -163,6 +193,69 @@ def _jacobi_svd_plain(a: torch.Tensor, max_sweeps: int, eps: float = EPS,
     return at[:n].mT, vt[:n, :n].mT, torch.tensor(off, dtype=dt, device=dev)
 
 
+def _jacobi_svd_block_plain(a: torch.Tensor, max_sweeps: int, w: int,
+                            eps: float = EPS, tol_eps: float = EPS):
+    """The kernel's block schedule in vectorized PyTorch at ``a``'s
+    dtype: ``(a_rot, v, off)``.  Blocks of ``w`` columns (zero columns
+    pad n to 2·w·P), the circle method over the 2P blocks, one inner
+    sweep of the same rotation (applied as :func:`_rotate` applies it)
+    over each block pair's 2w columns with the rotations accumulated
+    into J, then V_pq ← V_pq·J.  ``off`` of a
+    sweep is the maximum over its outer steps of (largest |apq| of the
+    step's pair visits) / (largest app or aqq of the step); sweeps stop
+    once it is at most ``_tol(m, n, tol_eps)``.  Used for CPU tensors and
+    as the reference the kernel is held against on the card; K3 runs it
+    at float64 with its own constants."""
+    from ..jacobi import round_robin_pairings
+
+    m, n = a.shape
+    p_count = -(-n // (2 * w))
+    n2 = 2 * w * p_count
+    dt, dev = a.dtype, a.device
+    tol = _tol(m, n, tol_eps)
+    # Columns as rows, so a block's columns are contiguous row gathers.
+    at = torch.zeros((n2, m), dtype=dt, device=dev)
+    at[:n] = a.mT
+    vt = torch.eye(n2, dtype=dt, device=dev)
+    outer = torch.from_numpy(round_robin_pairings(2 * p_count)).to(dev)
+    inner = torch.from_numpy(round_robin_pairings(2 * w)).to(dev)
+    blk = torch.arange(w, device=dev)
+    eye = torch.eye(2 * w, dtype=dt, device=dev)
+    off = float("inf")
+    for _ in range(max_sweeps):
+        if off <= tol:
+            break
+        off_t = torch.zeros((), dtype=dt, device=dev)
+        for step in outer:
+            # (P, 2w) global columns of each block pair.
+            cols = torch.cat([step[:, :1] * w + blk, step[:, 1:] * w + blk], 1)
+            s = at[cols]
+            jt = eye.expand(p_count, -1, -1).clone()  # rows: columns of J
+            apq_max = torch.zeros((), dtype=dt, device=dev)
+            nrm_max = torch.zeros((), dtype=dt, device=dev)
+            for pq in inner:
+                p, q = pq[:, 0], pq[:, 1]
+                xl, xr = s[:, p], s[:, q]
+                app = (xl * xl).sum(-1)
+                aqq = (xr * xr).sum(-1)
+                apq = (xl * xr).sum(-1)
+                nrm_max = torch.maximum(
+                    nrm_max, torch.maximum(app.max(), aqq.max())
+                )
+                apq_max = torch.maximum(apq_max, apq.abs().max())
+                c, sn = _rotation(app, aqq, apq, eps)
+                c, sn = c[..., None], sn[..., None]
+                s[:, p], s[:, q] = _rotate(xl, xr, c, sn)
+                jt[:, p], jt[:, q] = _rotate(jt[:, p], jt[:, q], c, sn)
+            off_t = torch.maximum(
+                off_t, apq_max / torch.where(nrm_max > 0, nrm_max, 1.0)
+            )
+            at[cols] = s
+            vt[cols] = jt @ vt[cols]
+        off = float(off_t)
+    return at[:n].mT, vt[:n, :n].mT, torch.tensor(off, dtype=dt, device=dev)
+
+
 def jacobi_svd_vmem(a: torch.Tensor, *, max_sweeps: int = 30):
     """One-sided Jacobi on the columns of ``a`` (m×n float32, m ≥ n)
     in one launch.  Returns ``(a_rot, v, off)`` — the columns of
@@ -171,9 +264,10 @@ def jacobi_svd_vmem(a: torch.Tensor, *, max_sweeps: int = 30):
     convergence measure.
 
     CUDA tensors launch the kernel (and raise if it cannot be built or
-    launched); CPU tensors run :func:`_jacobi_svd_plain`.  ``a.mT``
-    should be contiguous — true for the transpose view of a row-major
-    panel — or it is copied once.
+    launched, or if its grid cannot be co-resident); CPU tensors run
+    :func:`_jacobi_svd_block_plain` with the kernel's block width.
+    ``a.mT`` should be contiguous — true for the transpose view of a
+    row-major panel — or it is copied once.
     """
     global launches
     if a.dim() != 2:
@@ -183,25 +277,22 @@ def jacobi_svd_vmem(a: torch.Tensor, *, max_sweeps: int = 30):
     m, n = a.shape
     if not supports(m, n, a.dtype):
         raise ValueError(
-            f"a {m}x{n} panel is outside the kernel's reach "
-            f"({_smem_bytes(m, n)} bytes of shared memory, m >= n >= 2)"
+            f"a {m}x{n} panel is outside the kernel's reach (m >= n >= 2, "
+            f"n_pad <= {_MAX_N_PAD}, {_panel_bytes(m, n)} > {_MAX_BYTES} "
+            "bytes of panel and V)"
         )
+    w, p_count, r_count, mr = plan(m, n)
     if a.device.type == "cpu":
-        return _jacobi_svd_plain(a, max_sweeps)
+        return _jacobi_svd_block_plain(a, max_sweeps, w)
     if not a.is_cuda:
         raise ValueError(f"unsupported device {a.device}")
+    thr = threads(2 * w, mr)
+    if thr is None:
+        raise ValueError(f"block plan {(w, p_count, r_count, mr)} does not "
+                         "fit a CTA")
     lib = build()
-    at = a.mT.contiguous()
-    arot_t = torch.empty((n, m), dtype=a.dtype, device=a.device)
-    v_t = torch.empty((n, n), dtype=a.dtype, device=a.device)
-    off = torch.empty((1,), dtype=a.dtype, device=a.device)
-    pairs = _pair_table_on(n + (n % 2), a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.petal_jacobi_svd_f32(
-            at.data_ptr(), arot_t.data_ptr(), v_t.data_ptr(), off.data_ptr(),
-            pairs.data_ptr(), m, n, int(max_sweeps), _tol(m, n), stream,
-        )
-    _build.check(lib, status, "jacobi_svd kernel launch")
+    out = jacobi_block.launch(lib, lib.petal_jacobi_svd_f32, a, max_sweeps,
+                              (w, p_count, r_count, mr), thr, EPS,
+                              _tol(m, n))
     launches += 1
-    return arot_t.mT, v_t.mT, off[0]
+    return out

@@ -26,9 +26,13 @@ F32, F64 = torch.float32, torch.float64
         (256, 256, F64, "cuda", "k3"),
         (200_000, 256, F64, "cuda", "qr_k3"),   # the smoke run's f64 fit
         (1_000_000, 64, F32, "cuda", "qr_k2"),  # the smoke run's f32 fit
-        (1000, 64, F32, "cuda", "qr_k2"),       # no m ≥ 3n rule for f32
+        (1000, 64, F32, "cuda", "k2"),          # within K2's 4 MiB
+        (200_000, 256, F32, "cuda", "qr_k2"),   # the smoke run's wide fit
+        (20_000, 632, F32, "cuda", "qr_k2"),    # the widest R K2 takes
+        (5000, 169, F32, "cuda", "k2"),
+        (5000, 300, F32, "cuda", "qr_k2"),      # no m ≥ 3n rule for f32
         (1500, 600, F64, "cuda", "torch"),      # beyond K3's n_pad ≤ 512
-        (5000, 169, F32, "cuda", "torch"),      # beyond K2's R factor
+        (5000, 633, F32, "cuda", "torch"),      # beyond K2's R factor
         (1000, 400, F64, "cuda", "torch"),      # m < 3n: no QR for K3
         (1000, 1, F64, "cuda", "torch"),
         (16_384, 64, F64, "cpu", "qr_plain"),   # m·n = 2²⁰
@@ -168,7 +172,8 @@ def cuda_device():
     [
         (1000, 64, F64, 0, 1),     # direct K3
         (20_000, 64, F64, 0, 1),   # QR + K3 on R
-        (1000, 64, F32, 1, 0),     # QR + K2 on R
+        (1000, 64, F32, 1, 0),     # direct K2
+        (20_000, 64, F32, 1, 0),   # QR + K2 on R
         (1500, 600, F64, 0, 0),    # cuSOLVER
     ],
 )

@@ -15,6 +15,7 @@ from petal_decomposition_tpu.parallel.distributed import (
 import petal_decomposition_tpu_torch as pt
 from petal_decomposition_tpu_torch import config
 from petal_decomposition_tpu_torch.models.pca import Pca as PortPca
+from petal_decomposition_tpu_torch.ops import jacobi
 from petal_decomposition_tpu_torch.ops.kernels import jacobi_f64_kernel as k3
 from petal_decomposition_tpu_torch.ops.kernels import jacobi_kernels as k2
 from petal_decomposition_tpu_torch.parallel.distributed import pca_fit_gram
@@ -57,6 +58,16 @@ def _assert_same(x, k, band, **kw):
                     np.asarray(mj.explained_variance_)) < band
     assert _rel(m.mean_.numpy(), np.asarray(mj.mean_)) < band
     return m, mj
+
+
+def _low_rank(n, d, seed=0):
+    """A float32 feature table like the smoke run's: σⱼ ∝ 3·0.9ʲ over 32
+    directions above a flat noise floor of 0.05, mean 0.1 a column."""
+    rng = np.random.default_rng(seed)
+    basis = np.linalg.qr(rng.standard_normal((d, 32)))[0]
+    x = 0.05 * rng.standard_normal((n, d))
+    x += (rng.standard_normal((n, 32)) * 3.0 * 0.9 ** np.arange(32)) @ basis.T
+    return (x + 0.1 * rng.standard_normal(d)).astype(np.float32)
 
 
 def _gaussian(n, d, dtype=np.float64, seed=0, offset=0.0):
@@ -288,11 +299,11 @@ def test_unported_surfaces_raise():
 @pytest.mark.parametrize(
     "shape,dtype,gram",
     [
-        ((100_000, 168), torch.float32, False),  # K2 takes the 168² R
-        ((100_000, 169), torch.float32, True),   # beyond K2: the Gram
-        ((1_000, 169), torch.float32, False),    # n < 8d
-        ((100_000, 600), torch.float64, False),  # never float64
-        ((100_000, 600), torch.complex64, False),
+        ((100_000, 632), torch.float32, False),  # K2 takes the 632² R
+        ((100_000, 634), torch.float32, True),   # beyond K2: the Gram
+        ((1_000, 634), torch.float32, False),    # n < 8d
+        ((100_000, 700), torch.float64, False),  # never float64
+        ((100_000, 700), torch.complex64, False),
     ],
 )
 def test_auto_prefers_gram_on_the_card(shape, dtype, gram):
@@ -301,6 +312,51 @@ def test_auto_prefers_gram_on_the_card(shape, dtype, gram):
     x = torch.empty(shape, dtype=dtype, device="meta")
     assert PortPca._auto_prefers_gram(x) is gram
     assert not PortPca._auto_prefers_gram(torch.empty((10, 2)))  # CPU
+
+
+def _jax_prefers_gram(n, d):
+    """The JAX package's rule (``models/pca.py:_auto_prefers_gram``) on an
+    accelerator, for float32, with its own kernel gate; its backend test
+    is the one thing left out, since the JAX here runs on the CPU."""
+    from petal_decomposition_tpu.ops.pallas import jacobi_kernels as jk
+
+    direct_ok = jk.supports(n, d, np.float32)
+    qr_precond_ok = jk.supports(d + (d % 2), d, np.float32)
+    return not (direct_ok or qr_precond_ok) and n >= 8 * d
+
+
+def test_qr_k2_route_matches_jax_pca_at_256(monkeypatch):
+    """Exact float32 Pca of a 256-wide table through the rung the card
+    takes (QR + K2 on the 256×256 R, forced here on the CPU, where K2's
+    wrapper runs its block plain version) against the JAX package's Pca
+    at the float32 band."""
+    calls = []
+    real = k2._jacobi_svd_block_plain
+
+    def counted(a, max_sweeps, w):
+        calls.append(tuple(a.shape))
+        return real(a, max_sweeps, w)
+
+    monkeypatch.setattr(k2, "_jacobi_svd_block_plain", counted)
+    monkeypatch.setattr(config, "linalg_backend", "jacobi")
+    monkeypatch.setattr(jacobi, "_route", lambda m, n, dtype, dev: "qr_k2")
+    x = _low_rank(4000, 256, seed=25)
+    m, _ = _assert_same(x, 8, BAND[np.float32])
+    assert calls == [(256, 256)]
+    assert m.singular_values_.dtype == torch.float32
+
+
+def test_auto_prefers_gram_follows_the_jax_package():
+    """On the card the port sends every float32 shape where the JAX
+    package sends it: the Gram route only past K2's 632² R, at n ≥ 8d."""
+    ds = sorted(set(range(1, 80)) | set(range(80, 1400, 13))
+                | {168, 169, 630, 631, 632, 633, 634, 4096})
+    for d in ds:
+        for n in sorted({1, d - 1, d, 3 * d, 8 * d - 1, 8 * d, 8 * d + 1,
+                         3125, 3126, 28_924, 100_000, 1_000_000} - {0}):
+            x = torch.empty((n, d), dtype=torch.float32, device="meta")
+            assert PortPca._auto_prefers_gram(x) is _jax_prefers_gram(n, d), (
+                n, d)
 
 
 def test_record_fit_and_builder():
@@ -340,11 +396,29 @@ def test_f64_fit_launches_k3_on_card(cuda_device, shape, solver):
 
 @pytest.mark.cuda
 def test_f32_fit_launches_k2_through_the_tall_route(cuda_device):
-    x = _decaying(1000, 64, seed=22)
-    assert not k2.supports(1000, 64, torch.float32)
+    x = _decaying(20_000, 64, seed=22)
+    assert not k2.supports(20_000, 64, torch.float32)
     before = k2.launches
     m = pt.Pca(8, device=cuda_device)
     y = m.fit_transform(x).cpu().numpy()
     assert k2.launches == before + 1
     y_cpu = _port(8).fit_transform(x).numpy()
     assert _rel(y, y_cpu) < 1e-5
+
+
+@pytest.mark.cuda
+def test_wide_f32_fit_runs_qr_and_k2_on_card(cuda_device):
+    """Exact float32 Pca of a 200,000 × 256 table on the default solver:
+    QR + K2 on the 256×256 R (the JAX package's route), one launch, σ
+    within 1e-5 of float64 LAPACK on the card."""
+    x = _low_rank(200_000, 256, seed=24)
+    assert not PortPca._auto_prefers_gram(
+        torch.empty(x.shape, dtype=torch.float32, device="meta"))
+    before = k2.launches
+    m = pt.Pca(16, device=cuda_device)
+    m.fit(x)
+    assert k2.launches == before + 1
+    x64 = torch.from_numpy(x).to(cuda_device).double()
+    s_ref = torch.linalg.svdvals(x64 - x64.mean(0))[:16]
+    s = m.singular_values_.double()
+    assert float(((s - s_ref).abs() / s_ref).max()) < 1e-5
