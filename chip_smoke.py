@@ -19,9 +19,19 @@ through the entry points a user calls:
   R) and through the Gram solver;
 * ``RandomizedPca`` at BASELINE config 2 (100,000 × 1024 float64,
   k = 32, default knobs), whose SVD of Bᵀ is K3, and the same table
-  through the zero-pass Gram recovery, whose two 42×42 eighs are K3.
+  through the zero-pass Gram recovery, whose two 42×42 eighs are K3;
+* ``FastIca`` at BASELINE config 3 (100,000 samples of 64 Laplace
+  sources, float64 and float32) at the card's defaults and each
+  alternative of its three autos: float64 whitens through K3's 64×64
+  eigh and decorrelates through it, float32 whitens through QR + K2 on
+  the 64×64 R; with the parts of one step timed, the recovered sources
+  checked and 30-iteration fits at three seeds held against the same fits
+  on the CPU.
 
-K2 and K3 are then timed on the panels those fits hand them and a few
+K2's σ is checked at the edges of its reach (the JAX kernel's gate), and
+past the gate QR + K2 on R is timed beside K2 on the panel itself
+(``k2_reach``).  K2 and K3 are then timed on the panels those fits hand
+them and a few
 more (``K2_TIMED``, ``K3_TIMED``).  Each path is driven with the
 kernels' launch counts set to 0 just before it and read just after.
 Every phase prints one JSON line with its
@@ -59,6 +69,7 @@ N64, D64 = 200_000, 256  # the exact float64 fit's feature table
 NR, DR = 100_000, 1024  # BASELINE config 2, the float64 randomized fit
 N32, D32 = 1_000_000, 64  # the exact float32 fit
 N32W, D32W = 200_000, 256  # the exact float32 fit on the feature table
+NI, KI = 100_000, 64  # BASELINE config 3: FastIca, 64 sources × 100k samples
 CUDA = "cuda"
 HBM_BYTES_S = 3.35e12
 # NVIDIA's H100 SXM data sheet: float32 outside the tensor cores, float64
@@ -245,19 +256,88 @@ def randomized64_data(dev):
     return make_data(dev, NR, DR, torch.float64, SEED + 6)
 
 
-def split_panel(dev, dtype=None, rows=10_000):
-    """A centered ``rows`` × 50 Gaussian panel (float64 by default) with
-    column scales 1 to 5, as an exact fit of such a table hands it to
-    the Jacobi kernel directly: K3's plan splits 10,000 × 50 over two
-    block pairs and each pair's rows over 23 CTAs, K2's 20,000 × 50 the
-    same way (a float32 thread holds twice the rows)."""
+def ica_sources(dev, seed=SEED + 11):
+    """BASELINE config 3's sources and mixing: S, 100,000 × 64 Laplace(0,
+    1) draws, and A = Q₁·diag(1 … 4)·Q₂ᵀ with Q₁, Q₂ random orthogonal,
+    so κ(A) = 4; float64."""
+    import torch
+
+    f64 = torch.float64
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    e = torch.empty((2, NI, KI), dtype=f64, device=dev).exponential_(
+        generator=g)
+    q1, q2 = (torch.linalg.qr(torch.randn(KI, KI, generator=g, device=dev,
+                                          dtype=f64)).Q for _ in range(2))
+    a = (q1 * torch.linspace(1, 4, KI, device=dev, dtype=f64)) @ q2.mT
+    return e[0] - e[1], a
+
+
+def ica64_data(dev):
+    """BASELINE config 3's table X = S·Aᵀ in float64 (51 MB)."""
+    s, a = ica_sources(dev)
+    return s @ a.mT
+
+
+def ica32_data(dev):
+    """The same table in float32 (26 MB)."""
+    return ica64_data(dev).float()
+
+
+def amari_distance(p) -> float:
+    """How far the k×k ``p`` is from a scaled permutation: Amari's index
+    over 2k(k − 1), 0 for a scaled permutation and at most 1."""
+    r = p.abs()
+    k = r.shape[0]
+    rows = (r.sum(1) / r.amax(1) - 1).sum()
+    cols = (r.sum(0) / r.amax(0) - 1).sum()
+    return float((rows + cols) / (2 * k * (k - 1)))
+
+
+@contextlib.contextmanager
+def card_rungs_on_cpu():
+    """Run CPU fits through the rungs the card takes: every float64 PSD
+    eigh within K3's reach by ``linalg._eigh_psd_k3`` and every SVD by
+    its CUDA rung, each kernel's wrapper running its plain version on a
+    CPU tensor.  The eigen- and singular vectors' signs are then the
+    kernels' own, so a CPU fit whitens as the card's does."""
+    from petal_decomposition_tpu_torch import config
+    from petal_decomposition_tpu_torch.ops import jacobi, linalg
+    from petal_decomposition_tpu_torch.ops.kernels import (
+        jacobi_f64_kernel as k3,
+    )
+
+    real_eigh, real_route = linalg.eigh_psd_jit_cert, jacobi._route
+    backend = config.linalg_backend
+
+    def eigh(a):
+        if not a.is_cuda and k3.supports(a.shape[0], a.shape[0], a.dtype):
+            return linalg._eigh_psd_k3(a)
+        return real_eigh(a)
+
+    linalg.eigh_psd_jit_cert = eigh
+    jacobi._route = lambda m, n, dtype, _device_type: real_route(
+        m, n, dtype, "cuda")
+    config.linalg_backend = "jacobi"
+    try:
+        yield
+    finally:
+        linalg.eigh_psd_jit_cert, jacobi._route = real_eigh, real_route
+        config.linalg_backend = backend
+
+
+def split_panel(dev):
+    """A centered 10,000 × 50 float64 Gaussian panel with column scales
+    1 to 5, as an exact fit of such a table hands it to K3 directly:
+    K3's plan splits it over two block pairs and each pair's rows over
+    23 CTAs."""
     import torch
 
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 8)
-    dtype = dtype or torch.float64
-    x = (torch.randn(rows, 50, generator=g, device=dev, dtype=dtype)
-         * torch.linspace(1, 5, 50, device=dev, dtype=dtype))
+    f64 = torch.float64
+    x = (torch.randn(10_000, 50, generator=g, device=dev, dtype=f64)
+         * torch.linspace(1, 5, 50, device=dev, dtype=f64))
     return x - x.mean(0)
 
 
@@ -281,6 +361,11 @@ def gram_recovery_model(api, dev):
     return (api.RandomizedPcaBuilder(K).seed(SEED).finder_precision("full")
             .range_finder("gram").gram_projection("gram").device(dev)
             .build())
+
+
+def ica_model(api, dev, seed=SEED, **knobs):
+    """BASELINE config 3's model: FastIca at the defaults and ``knobs``."""
+    return api.FastIca(seed=seed, device=dev, **knobs)
 
 
 def kernel_inputs(mod, make, x, count):
@@ -320,10 +405,11 @@ def k3_panels(api, k3, dev, on_fit=None):
     them over: the 256×256 R and Gram of exact ``Pca(32)`` on the
     200k×256 table (QR and Gram routes), Bᵀ 1024×42 of config 2's
     ``RandomizedPca`` and the first 42×42 eigh of its zero-pass Gram
-    recovery, config 1's centered 1000×64 panel (direct K3) and
-    ``split_panel``.  ``on_fit(name, make, x)`` is called after each
-    fit's capture."""
-    panels = fit_panels(k3, {
+    recovery, config 3's 64×64 whitening Gram (``FastIca``'s first of
+    three K3 eighs; a tree without ``FastIca`` hands none), config 1's
+    centered 1000×64 panel (direct K3) and ``split_panel``.
+    ``on_fit(name, make, x)`` is called after each fit's capture."""
+    fits = {
         "r_factor_256x256": (pca64_data, lambda: exact_model(api, dev), 1),
         "psd_gram_256x256": (
             pca64_data, lambda: exact_model(api, dev, "gram"), 1),
@@ -331,7 +417,11 @@ def k3_panels(api, k3, dev, on_fit=None):
             randomized64_data, lambda: randomized_model(api, dev), 1),
         "gram_recovery_eigh_42x42": (
             randomized64_data, lambda: gram_recovery_model(api, dev), 2),
-    }, dev, on_fit)
+    }
+    if hasattr(api, "FastIca"):
+        fits["fast_ica_gram_64x64"] = (
+            ica64_data, lambda: ica_model(api, dev), 3)
+    panels = fit_panels(k3, fits, dev, on_fit)
     x = config1_data(dev)
     panels["config1_centered_1000x64"] = x - x.mean(0)
     panels["split_10000x50"] = split_panel(dev)
@@ -341,17 +431,13 @@ def k3_panels(api, k3, dev, on_fit=None):
 def k2_more_panels(api, k2, dev, on_fit=None, strict=True):
     """The panels K2 is timed on beside those the smoke run's main fits
     hand it: the 632×632 R of exact ``Pca(32)`` on a 20,000 × 632
-    float32 table (QR + K2, the widest R within reach), config 1's
-    centered table in float32 (1000×64, direct K2) and ``split_panel``
-    in float32 at 20,000 rows (rows split over CTAs)."""
-    import torch
-
+    float32 table (QR + K2, the widest R within reach) and config 1's
+    centered table in float32 (1000×64, direct K2)."""
     panels = fit_panels(k2, {
         "r_factor_632x632": (r632_data, lambda: exact_model(api, dev), 1),
     }, dev, on_fit, strict)
     x = config1_data(dev).float()
     panels["config1_f32_1000x64"] = x - x.mean(0)
-    panels["split_20000x50"] = split_panel(dev, torch.float32, 20_000)
     return panels
 
 
@@ -360,14 +446,19 @@ def k2_panels(api, k2, dev, on_fit=None, strict=True):
     them over: Bᵀ 1024×43 of the data-route ``RandomizedPca`` on the
     1M×1024 table, the 64×64 R of exact ``Pca(32)`` on the 1M×64 float32
     table, the 256×256 R of exact ``Pca(32)`` on the 200k×256 float32
-    table (default solver), and :func:`k2_more_panels`.  ``strict``: as
-    :func:`fit_panels`."""
-    panels = fit_panels(k2, {
+    table (default solver), the 64×64 R of config 3's float32
+    ``FastIca`` whitening (a tree without ``FastIca`` hands none), and
+    :func:`k2_more_panels`.  ``strict``: as :func:`fit_panels`."""
+    fits = {
         "bt_1024x43": (make_data, lambda: data_route_model(api, dev), 1),
         "r_factor_64x64": (pca32_data, lambda: exact_model(api, dev), 1),
         "r_factor_256x256": (
             pca32w_data, lambda: exact_model(api, dev, "auto"), 1),
-    }, dev, on_fit, strict)
+    }
+    if hasattr(api, "FastIca"):
+        fits["fast_ica_r_factor_64x64"] = (
+            ica32_data, lambda: ica_model(api, dev), 1)
+    panels = fit_panels(k2, fits, dev, on_fit, strict)
     panels.update(k2_more_panels(api, k2, dev, on_fit, strict))
     return panels
 
@@ -817,9 +908,445 @@ def phase_gram_recovery_f64(ctx):
             "launches_per_3_fits": launches, "sigma_rel_err_vs_f64": sig}
 
 
+# -- FastIca at BASELINE config 3: K3 and K2 --------------------------
+
+# The fits: the card's defaults (decorrelation "ns"; for float64 also
+# iteration_precision "f32" and whiten_solver "eigh") and each
+# alternative of those three autos, with full precision and the eigh
+# decorrelation together, the one float64 setting whose every step runs
+# K3.
+ICA_FITS = {
+    "f64_defaults": ("float64", {}),
+    "f64_decorrelation_eigh": ("float64", {"decorrelation": "eigh"}),
+    "f64_precision_full": ("float64", {"iteration_precision": "full"}),
+    "f64_precision_full_decorrelation_eigh": (
+        "float64", {"iteration_precision": "full", "decorrelation": "eigh"}),
+    "f64_whiten_svd": ("float64", {"whiten_solver": "svd"}),
+    "f32_defaults": ("float32", {}),
+    "f32_decorrelation_eigh": ("float32", {"decorrelation": "eigh"}),
+    "f32_whiten_eigh": ("float32", {"whiten_solver": "eigh"}),
+}
+
+# Amari distance of components·A from a scaled permutation that a
+# config-3 fit must stay under: the port's CPU fits of this table (float64
+# full precision with eigh, float64 "f32" stages with ns, float32; 200
+# iterations each) all read 0.00279.  The index averages over k², so a
+# fit must also recover every source one to one: the rows' largest
+# entries of |components·A| fall in distinct columns, each at least
+# SOURCE_RATIO_MIN times its row's next (78 in the CPU float32 fit).
+AMARI_MAX = 0.005
+SOURCE_RATIO_MIN = 10.0
+
+
+def sources_recovered(p) -> float:
+    """The smallest ratio of a row's largest to its next entry of |p|,
+    after requiring the rows' largest entries in distinct columns."""
+    r = p.abs()
+    require(len(set(r.argmax(1).tolist())) == r.shape[0],
+            "two components unmix the same source")
+    top2 = r.topk(2, dim=1).values
+    return float((top2[:, 0] / top2[:, 1]).min())
+
+
+def ica_step_split(fi, linalg, x1, reps=20):
+    """Device ms (CUDA events, median of ``reps``) of the parts of one
+    FastIca step at a fixed W on the whitened k×n ``x1``: W·X, the
+    logcosh contrast, G·Xᵀ, each decorrelation, whole steps, and, by the
+    host clock over ``reps`` steps, the cost of reading ``lim`` on the
+    host every step."""
+    import torch
+
+    k, n = x1.shape
+    g = torch.Generator(device=x1.device)
+    g.manual_seed(SEED + 12)
+    w = fi.symmetric_decorrelation(torch.randn(
+        k, k, generator=g, device=x1.device, dtype=x1.dtype))
+    wx = linalg.mdot(w, x1)
+    gwtx, gsum = fi._contrast_sums("logcosh", wx)
+    upd = linalg.mdot(gwtx, x1.mT) / n - (gsum / n)[:, None] * w
+    ns, eigh = fi.symmetric_decorrelation_ns, fi.symmetric_decorrelation
+    out = {
+        "w_times_x": cuda_ms(lambda: linalg.mdot(w, x1), reps),
+        "contrast": cuda_ms(lambda: fi._contrast_sums("logcosh", wx), reps),
+        "g_times_xt": cuda_ms(lambda: linalg.mdot(gwtx, x1.mT), reps),
+        "decorrelation_ns": cuda_ms(lambda: ns(upd), reps),
+        "decorrelation_eigh": cuda_ms(lambda: eigh(upd), reps),
+        "step_ns": cuda_ms(lambda: fi._step(w, x1, "logcosh", ns, 1 / n),
+                           reps),
+        "step_eigh": cuda_ms(
+            lambda: fi._step(w, x1, "logcosh", eigh, 1 / n), reps),
+    }
+    if x1.dtype == torch.float64:
+        from petal_decomposition_tpu_torch import config
+        from petal_decomposition_tpu_torch.ops import splitmm
+
+        backend, config.linalg_backend = config.linalg_backend, "torch"
+        try:
+            out["decorrelation_eigh_torch"] = cuda_ms(lambda: eigh(upd), reps)
+        finally:
+            config.linalg_backend = backend
+        x32, w32 = x1.float(), w.float()
+        out["step_ns_f32_stage"] = cuda_ms(
+            lambda: fi._step(w32, x32, "logcosh", ns, 1 / n), reps)
+        xh, xl = splitmm.split_f64(x1)
+        out["step_ns_ds64_stage"] = cuda_ms(
+            lambda: fi._step_ds(w, xh, xl, "logcosh", ns, 1 / n), reps)
+
+    def host_loop(read):
+        ww = w
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ww, lim = fi._step(ww, x1, "logcosh", ns, 1 / n)
+            if read:
+                float(lim)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    host_loop(True)  # warm-up
+    out["step_ns_host_ms_reading_lim"] = with_read = host_loop(True)
+    out["step_ns_host_ms_not_reading"] = without = host_loop(False)
+    out["lim_read_ms"] = with_read - without
+    return out
+
+
+@phase
+def phase_fast_ica_config3(ctx):
+    """BASELINE config 3: FastIca on 100,000 samples of 64 Laplace
+    sources mixed by A (κ = 4), float64 and float32, at the card's
+    defaults and each alternative of the three autos (``ICA_FITS``): fit
+    ms (median of 3), n_iter, iters/s, the whitening's ms, each fit's K2
+    and K3 launches, its decorrelation certificate and the Amari
+    distance of components·A, with every source recovered one to one;
+    and the parts of one step."""
+    import torch
+
+    from petal_decomposition_tpu_torch.models import fast_ica as fi
+
+    api, k2, k3, linalg = ctx.api, ctx.k2, ctx.k3, ctx.linalg
+    s, a = ica_sources(ctx.dev)
+    xs = {"float64": s @ a.mT}
+    del s
+    xs["float32"] = xs["float64"].float()
+    kernels = {"jacobi_svd": k2, "jacobi_svd_f64": k3}
+
+    # The panels the fits hand K2 and K3 (the warm-up fits).
+    ctx.k3_cases["fast_ica_gram_64x64"] = kernel_inputs(
+        k3, lambda: ica_model(api, CUDA), xs["float64"], 3)[0]
+    ctx.k3_cases["fast_ica_decorrelation_64x64"] = kernel_inputs(
+        k3, lambda: ica_model(api, CUDA, iteration_precision="full",
+                              decorrelation="eigh"),
+        xs["float64"], None)[2]
+    (ctx.k2_cases["fast_ica_r_factor_64x64"],) = kernel_inputs(
+        k2, lambda: ica_model(api, CUDA), xs["float32"], 1)
+    require(tuple(ctx.k2_cases["fast_ica_r_factor_64x64"].shape) == (KI, KI)
+            and tuple(ctx.k3_cases["fast_ica_gram_64x64"].shape) == (KI, KI),
+            "FastIca did not whiten through K3's Gram eigh (float64) and "
+            "QR + K2 on the 64×64 R (float32)")
+
+    fits = {}
+    for dtype, x in xs.items():
+        xc = x - x.mean(0)
+        xc64 = xc.double()
+        gram = xc64.mT @ xc64
+        for name, (dt, knobs) in ICA_FITS.items():
+            if dt != dtype:
+                continue
+            ica_model(api, CUDA, **knobs).fit(x)  # warm-up
+            fit_ms, counts = [], []
+            for _ in range(3):
+                model = ica_model(api, CUDA, **knobs)
+                for mod in kernels.values():
+                    mod.launches = 0
+                model.fit(x)
+                counts.append({n: m.launches for n, m in kernels.items()})
+                fit_ms.append(model.last_fit_stats_.wall_time_s * 1e3)
+            solver = fi.resolve_whiten_solver(
+                knobs.get("whiten_solver", "auto"), x.dtype, "cuda")
+            need = ["jacobi_svd_f64"] if dtype == "float64" else (
+                ["jacobi_svd"] if solver == "svd" else [])
+            for c in counts:
+                for kname in need:
+                    require(c[kname] > 0, f"FastIca {name} launched no {kname}")
+                ctx.add_launches(c)
+            comp = model.components_.double()
+            g = comp @ gram @ comp.mT
+            cert = float((g @ g - g).abs().max())
+            fi.check_decorrelation_value(cert, x.dtype)
+            amari = amari_distance(comp @ a)
+            require(amari <= AMARI_MAX,
+                    f"FastIca {name}: Amari distance {amari} > {AMARI_MAX}")
+            ratio = sources_recovered(comp @ a)
+            require(ratio >= SOURCE_RATIO_MIN,
+                    f"FastIca {name}: a source's ratio {ratio}")
+            med = statistics.median(fit_ms)
+            fits[name] = {
+                "knobs": knobs, "whiten_solver": solver, "fit_ms": fit_ms,
+                "fit_ms_median": med, "n_iter": model.n_iter_,
+                "iters_per_s": model.n_iter_ / (med / 1e3),
+                "whitening_ms": cuda_ms(
+                    lambda: fi._whitening_matrix(xc.mT, KI, solver), 5),
+                "launches_per_fit": counts,
+                "decorrelation_certificate": cert, "amari_distance": amari,
+                "min_source_ratio": ratio,
+            }
+        del gram, xc64
+
+    # The parts of one step, on each dtype's whitened table.
+    split = {}
+    for dtype, x in xs.items():
+        xc = x - x.mean(0)
+        kmat = fi._whitening_matrix(xc.mT, KI, "svd")[0]
+        split[dtype] = ica_step_split(
+            fi, linalg, linalg.mdot(kmat, xc.mT) * math.sqrt(NI))
+
+    del xs
+    torch.cuda.empty_cache()
+    return {"phase": "fast_ica_config3", "x": [NI, KI], "fits": fits,
+            "step_split_ms": split, "amari_max": AMARI_MAX,
+            "source_ratio_min": SOURCE_RATIO_MIN}
+
+
+def ica_card_and_cpu(api, x, seed=SEED, **kw):
+    """Fit ``FastIca(seed=seed, **kw)`` on ``x`` on the card and on the
+    CPU through the card's rungs (:func:`card_rungs_on_cpu`), both at the
+    card's resolution of every auto, from one W₀: the seed's draw (the
+    port draws on a CPU generator), decorrelated once in float64.  A
+    random W₀'s own decorrelation is ill-conditioned in float32: the
+    smallest eigenvalue of W₀·W₀ᵀ may lie within rounding of the
+    pseudo-inverse cutoff (λmax·eps·k), where the two devices can decide
+    apart and start O(1) apart.  Each whitened row's sign is the
+    solver's own, and the card's kernels and their plain versions may
+    choose a row's sign apart (a float32 QR + K2 did, on one of 64
+    rows); so the CPU fit's W₀ has the columns of the flipped rows
+    flipped too, which runs the same updates in the flipped coordinates
+    and ends at the same components.  Returns ``(card, cpu,
+    whitening_rel_err, rows_flipped)``."""
+    import torch
+
+    from petal_decomposition_tpu_torch.models import fast_ica as fi
+    from petal_decomposition_tpu_torch.utils import rng
+
+    solver = fi.resolve_whiten_solver(kw.get("whiten_solver", "auto"),
+                                      x.dtype, "cuda")
+    kw = dict(kw, whiten_solver=solver,
+              decorrelation=fi.resolve_decorrelation(
+                  kw.get("decorrelation", "auto"), "cuda"),
+              iteration_precision=fi.resolve_iteration_precision(
+                  kw.get("iteration_precision", "auto"), x.dtype, "cuda"))
+    real_normal = rng.normal
+
+    def w0(gen, shape, dtype, device):
+        w = real_normal(gen, shape, dtype, "cpu").double()
+        lam, v = torch.linalg.eigh(w @ w.mT)
+        return ((v * lam.rsqrt()) @ v.mT @ w).to(device, dtype)
+
+    xh = x.cpu()
+    k = min(x.shape)
+    k_card = fi._whitening_matrix((x - x.mean(0)).mT, k, solver)[0].cpu()
+    rng.normal = w0
+    try:
+        card = ica_model(api, CUDA, seed, **kw).fit(x)
+        with card_rungs_on_cpu():
+            k_cpu = fi._whitening_matrix((xh - xh.mean(0)).mT, k, solver)[0]
+            signs = torch.sign((k_card * k_cpu).sum(1))
+            rng.normal = lambda *args: w0(*args) * signs
+            cpu = ica_model(api, "cpu", seed, **kw).fit(xh)
+    finally:
+        rng.normal = real_normal
+    k_err = rel_max(k_card.double(), (signs[:, None] * k_cpu).double())
+    return card, cpu, k_err, int((signs < 0).sum())
+
+
+def w0_lambda_ratio(seed, x) -> float:
+    """λmin/λmax of W₀·W₀ᵀ for the W₀ ``FastIca(seed=seed)`` draws for
+    ``x``: where it lies near the decorrelation's cutoff, eps·k, a fit's
+    first decorrelation is a close call."""
+    import torch
+
+    from petal_decomposition_tpu_torch.utils import rng
+
+    w = rng.normal(rng.split(rng.generator_from_seed(seed)), (KI, KI),
+                   x.dtype, "cpu").double()
+    lam = torch.linalg.eigvalsh(w @ w.mT)
+    return float(lam[0] / lam[-1])
+
+
+# The card-against-CPU fits: three seeds of config 3's data and W₀, at a
+# fixed count past the map's sensitive first steps.
+ICA_CHECK_SEEDS = (SEED + 11, SEED + 21, SEED + 31)
+ICA_CHECK_ITERS = 30
+
+
+@phase
+def phase_fast_ica_card_vs_cpu(ctx):
+    """Config 3's float64 fit (full precision, eigh: K3 whitens and
+    decorrelates every step) and float32 fit (defaults: QR + K2
+    whitens) on the card at tol = 0 and ``ICA_CHECK_ITERS`` iterations,
+    against the port's own CPU fit (:func:`ica_card_and_cpu`), rows
+    compared sign-canonically, for each seed of ``ICA_CHECK_SEEDS``; and
+    the two whitening matrices, row signs aligned.  Bands: components
+    1e-9 (float64) and 1e-4 (float32); whitening 1e-10 and 1e-4 (a
+    Householder QR of 100,000 rows in float32 is exact to ≈ eps·√m ≈
+    4e-5).  The map's first ≈ 10 steps amplify a perturbation of the
+    whitening by up to 1e4 in float64 and to O(1) in float32; by step
+    20 it has contracted it back to its own size
+    (``tools/ica_sensitivity.py``), so 30 iterations compare the two
+    devices' rounding and not where the map stood when it was read."""
+    import torch
+
+    checks = {}
+    for seed in ICA_CHECK_SEEDS:
+        s, a = ica_sources(ctx.dev, seed)
+        x64 = s @ a.mT
+        del s
+        for x, knobs, k_band, band in (
+                (x64, {"decorrelation": "eigh", "iteration_precision": "full"},
+                 1e-10, 1e-9),
+                (x64.float(), {}, 1e-4, 1e-4)):
+            card, cpu, k_err, flipped = ica_card_and_cpu(
+                ctx.api, x, seed, tol=0.0, max_iter=ICA_CHECK_ITERS, **knobs)
+            want = cpu.components_.double()
+            got = card.components_.double().cpu()
+            got = got * torch.sign((got * want).sum(1, keepdim=True))
+            checks[f"{str(x.dtype)[6:]}_seed{seed - SEED}"] = {
+                "knobs": knobs, "w0_lambda_ratio": w0_lambda_ratio(seed, x),
+                "decorrelation_cutoff": torch.finfo(x.dtype).eps * KI,
+                "whitening_rel_err": k_err,
+                "whitening_rows_flipped": flipped, "whitening_band": k_band,
+                "components_rel_err": rel_max(got, want), "band": band,
+                "n_iter": [card.n_iter_, cpu.n_iter_]}
+    emit({"phase": "fast_ica_card_vs_cpu_numbers", "checks": checks})
+    for name, c in checks.items():
+        require(c["n_iter"] == [ICA_CHECK_ITERS] * 2,
+                f"FastIca {name}: n_iter {c['n_iter']}")
+        require(c["whitening_rel_err"] <= c["whitening_band"],
+                f"FastIca {name}: whitening card vs CPU "
+                f"{c['whitening_rel_err']}")
+        require(c["components_rel_err"] <= c["band"],
+                f"FastIca {name}: card vs CPU {c['components_rel_err']}")
+    return {"phase": "fast_ica_card_vs_cpu", "checks": checks}
+
+
+def k2_without_gate(k2):
+    """A stand-in for ``k2.jacobi_svd_vmem`` without the JAX kernel's
+    gate, under a block plan of the reach the kernel itself has (n_pad ≤
+    632 and 4 MiB of panel and V): what :func:`phase_k2_reach` times
+    past the gate.  It counts no launch."""
+    import torch
+
+    from petal_decomposition_tpu_torch.ops.kernels import jacobi_block
+
+    wide = jacobi_block.BlockPlan(torch.float32, k2._MAX_N_PAD,
+                                  k2._MAX_BYTES, k2._CYCLES)
+    lib = k2.build()
+
+    def run(a, *, max_sweeps=30):
+        m, n = a.shape
+        block_plan = wide.plan(m, n)
+        return jacobi_block.launch(
+            lib, lib.petal_jacobi_svd_f32, a, max_sweeps, block_plan,
+            wide.threads(2 * block_plan[0], block_plan[3]), k2.EPS,
+            k2._tol(m, n))
+
+    return run
+
+
+# Centered low-rank-plus-noise float32 panels at the edges of K2's reach,
+# and the rung the ladder takes for each.
+K2_EDGES = {(1333, 300): "k2", (3125, 128): "k2", (632, 632): "k2",
+            (3000, 300): "qr_k2"}
+
+
+def sigma_errors(s, s_ref):
+    """``(all, top K)``: max |σ − σ_ref| relative to σ₁."""
+    err = (s.double() - s_ref).abs() / s_ref[0]
+    return float(err.max()), float(err[:K].max())
+
+
+@phase
+def phase_k2_reach(ctx):
+    """K2's reach is the JAX kernel's gate, m·max(n_pad, 128) ≤ 400,000.
+
+    At its edges (``K2_EDGES``, ``make_data`` panels) each panel's σ
+    by the rung the ladder takes, against float64 relative to σ₁: the
+    top K (what ``Pca(K)`` reports) within 1e-5, and the whole spectrum
+    within 1e-5 on the tall panels.  The stop rule of the TPU kernel is
+    norm-wise: it ends the sweeps once every pair's |apq| is within
+    tol = eps·√max(m, n_pad) of σ₁², so two near-null columns of a
+    square panel may stay coupled by up to tol·σ₁², and their σ off by
+    up to √tol·σ₁; there (m < 2n) the whole spectrum is held to that.
+    The TPU kernel's order (``_jacobi_svd_plain``) is read on the same
+    panels beside it.
+
+    Past the gate (5000×169, 3000×300 and 10000×16 centered Gaussian
+    panels, column scales 1 to 5) the ladder takes QR + K2 on R, as the
+    JAX package does; K2 on the panel itself (:func:`k2_without_gate`)
+    is timed beside it (CUDA events, median of 20), each with σ against
+    float64, and QR + K2 held to 1e-5."""
+    import torch
+
+    from petal_decomposition_tpu_torch.ops import jacobi
+
+    k2, f32 = ctx.k2, torch.float32
+    real_route, real_wrapper = jacobi._route, k2.jacobi_svd_vmem
+    edges = {}
+    for (m, n), rung in K2_EDGES.items():
+        x = make_data(ctx.dev, m, n, f32, SEED + 14)
+        a = x - x.mean(0)
+        require(real_route(m, n, f32, "cuda") == rung,
+                f"{m}x{n} float32 does not take {rung}")
+        s_ref = torch.linalg.svdvals(a.double())
+        row = dict(zip(("sigma_rel_err_f64", "top_k_sigma_rel_err_f64"),
+                       sigma_errors(jacobi.jacobi_svd(a)[1], s_ref)),
+                   rung=rung)
+        if rung == "k2":
+            a_rot, _, _ = k2._jacobi_svd_plain(a, 30)
+            row["tpu_order_sigma_rel_err_f64"] = sigma_errors(
+                torch.sqrt((a_rot * a_rot).sum(0)).sort(descending=True)[0],
+                s_ref)[0]
+        row["band"] = (1e-5 if m >= 2 * n
+                       else max(1e-5, math.sqrt(k2._tol(m, n))))
+        edges[f"{m}x{n}"] = row
+    emit({"phase": "k2_reach_edges", "panels": edges})
+    for name, row in edges.items():
+        require(row["top_k_sigma_rel_err_f64"] <= 1e-5,
+                f"{name} {row['rung']}: top-{K} σ error {row}")
+        require(row["sigma_rel_err_f64"] <= row["band"],
+                f"{name} {row['rung']}: σ error {row}")
+
+    wide = k2_without_gate(k2)
+    out = {}
+    try:
+        for m, n in ((5000, 169), (3000, 300), (10_000, 16)):
+            g = torch.Generator(device=ctx.dev)
+            g.manual_seed(SEED + 13)
+            x = (torch.randn(m, n, generator=g, device=ctx.dev)
+                 * torch.linspace(1, 5, n, device=ctx.dev))
+            a = x - x.mean(0)
+            require(real_route(m, n, f32, "cuda") == "qr_k2",
+                    f"{m}x{n} float32 does not take the JAX gate's rung")
+            s_ref = torch.linalg.svdvals(a.double())
+            row = {}
+            for route in ("k2", "qr_k2"):
+                jacobi._route = lambda *_args, route=route: route
+                k2.jacobi_svd_vmem = wide if route == "k2" else real_wrapper
+                err = sigma_errors(jacobi.jacobi_svd(a)[1], s_ref)[0]
+                require(math.isfinite(err), f"{m}x{n} {route}: σ not finite")
+                row[route] = {"ms": cuda_ms(lambda: jacobi.jacobi_svd(a), 20),
+                              "sigma_rel_err_f64": err}
+            require(row["qr_k2"]["sigma_rel_err_f64"] <= 1e-5,
+                    f"{m}x{n} qr_k2: σ error {row['qr_k2']}")
+            out[f"{m}x{n}"] = row
+    finally:
+        jacobi._route, k2.jacobi_svd_vmem = real_route, real_wrapper
+    return {"phase": "k2_reach", "edges": edges, "past_gate": out}
+
+
 # The panels K2 is timed on; the PyTorch call for each is the SVD.
 K2_TIMED = ("bt_1024x43", "r_factor_64x64", "config1_f32_1000x64",
-            "r_factor_256x256", "r_factor_632x632", "split_20000x50")
+            "r_factor_256x256", "r_factor_632x632",
+            "fast_ica_r_factor_64x64")
 
 
 def vector_band(n: int) -> float:
@@ -896,6 +1423,8 @@ K3_TIMED = {
     "config1_centered_1000x64": "svd",
     "bt_1024x42": "svd",
     "split_10000x50": "svd",
+    "fast_ica_gram_64x64": "eigh",
+    "fast_ica_decorrelation_64x64": "eigh",
 }
 
 
@@ -961,6 +1490,7 @@ def phase_k3(ctx):
 PHASES = (phase_k1, phase_slice, phase_default, phase_pca_f64,
           phase_pca_f64_gram, phase_config1, phase_pca_f32,
           phase_pca_f32_wide, phase_randomized_f64, phase_gram_recovery_f64,
+          phase_fast_ica_config3, phase_fast_ica_card_vs_cpu, phase_k2_reach,
           phase_k2, phase_k3)
 
 KERNELS = {

@@ -16,6 +16,8 @@ from ..ops.linalg import mdot
 __all__ = [
     "default_device",
     "as_matrix",
+    "reject_mesh",
+    "streamed_not_ported",
     "check_min_dims",
     "check_fitted",
     "real_dtype",
@@ -59,6 +61,23 @@ def as_matrix(x, device, complex_ok: bool = False) -> torch.Tensor:
     if not (t.is_floating_point() or t.is_complex()):
         t = t.to(torch.float64)
     return t.to(device).contiguous()
+
+
+def reject_mesh(mesh) -> None:
+    """Device meshes are not ported yet: a model given one raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh fits are not ported to PyTorch yet (ROADMAP.md §1 "
+            "item 8); fit on one device"
+        )
+
+
+def streamed_not_ported(*_args, **_kwargs):
+    """The streamed fits and transforms are not ported yet."""
+    raise NotImplementedError(
+        "streamed fits and transforms are not ported to PyTorch yet "
+        "(ROADMAP.md §1 item 6)"
+    )
 
 
 def check_min_dims(x, n_components: int) -> None:

@@ -60,11 +60,7 @@ class Pca:
             raise InvalidInput("n_components must be non-negative")
         if solver not in ("auto", "full", "gram"):
             raise ValueError(f"unknown solver {solver!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh fits are not ported to PyTorch yet (ROADMAP.md §1 "
-                "item 8); fit on one device"
-            )
+        _common.reject_mesh(mesh)
         self._n_components = int(n_components)
         self._centering = bool(centering)
         # "full": thin SVD of the data (1e-10 parity path).
@@ -160,14 +156,10 @@ class Pca:
             y, self._components, self._means, self._centering,
         )
 
-    def fit_batched(self, blocks, *, block_rows: int | None = None):
-        """Not ported yet, like ``partial_fit`` and ``transform_batched``."""
-        raise NotImplementedError(
-            "streamed fits and transforms are not ported to PyTorch yet "
-            "(ROADMAP.md §1 item 6)"
-        )
-
-    transform_batched = partial_fit = fit_batched
+    # Not ported yet: each raises NotImplementedError.
+    fit_batched = transform_batched = partial_fit = staticmethod(
+        _common.streamed_not_ported
+    )
 
     @staticmethod
     def _auto_prefers_gram(x) -> bool:

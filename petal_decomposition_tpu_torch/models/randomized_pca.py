@@ -102,11 +102,7 @@ class RandomizedPca:
                  device=None):
         if n_components < 0:
             raise InvalidInput("n_components must be non-negative")
-        if mesh is not None:
-            raise ValueError(
-                "mesh fits are not ported to PyTorch yet; "
-                "fit on one device"
-            )
+        _common.reject_mesh(mesh)
         if power_iteration_normalizer not in ("auto",) + _NORMALIZERS:
             raise ValueError(
                 f"unknown normalizer {power_iteration_normalizer!r}"
@@ -349,7 +345,8 @@ class RandomizedPcaBuilder:
         return self
 
     def mesh(self, mesh) -> "RandomizedPcaBuilder":
-        """Not ported yet: ``build()`` raises ``ValueError`` for a mesh."""
+        """Not ported yet: ``build()`` raises ``NotImplementedError`` for
+        a mesh."""
         self._mesh = mesh
         return self
 

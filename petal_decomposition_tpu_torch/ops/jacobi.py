@@ -6,8 +6,8 @@ core; the two-sided ``jacobi_eigh`` is not on the port's path).
 of the JAX package's ladder (``jacobi.py:344-400``) that fits, by dtype,
 device and the kernels' ``supports()`` alone (:func:`_route`):
 
-1. ``"k2"``: float32 on CUDA within K2's reach → the hand-written
-   kernel ``kernels/jacobi_kernels.py``;
+1. ``"k2"``: float32 on CUDA within K2's reach (the JAX kernel's
+   gate) → the hand-written kernel ``kernels/jacobi_kernels.py``;
 2. ``"k3"``: float64 on CUDA within K3's reach →
    ``kernels/jacobi_f64_kernel.py``;
 3. ``"qr_k3"``: tall float64 on CUDA (m ≥ 3n) whose n×n R factor K3

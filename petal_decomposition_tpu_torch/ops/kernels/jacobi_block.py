@@ -72,16 +72,18 @@ class CycleModel:
 
 class BlockPlan:
     """The kernel's reach and block plan for one element type: panels
-    with n_pad = n + (n odd) ≤ ``max_n_pad`` and (m + n_pad)·n_pad
-    elements of panel and V within ``max_bytes``."""
+    with n_pad = n + (n odd) ≤ ``max_n_pad``, (m + n_pad)·n_pad elements
+    of panel and V within ``max_bytes`` and, where ``max_padded`` is
+    set, m·max(n_pad, 128) ≤ ``max_padded``."""
 
     def __init__(self, dtype: torch.dtype, max_n_pad: int, max_bytes: int,
-                 cycles: CycleModel):
+                 cycles: CycleModel, max_padded: int | None = None):
         self.dtype = dtype
         self.size = torch.finfo(dtype).bits // 8
         self.words = self.size // 4  # 32-bit registers an element takes
         self.max_n_pad = max_n_pad
         self.max_bytes = max_bytes
+        self.max_padded = max_padded
         self.cycles = cycles
         self.plan = functools.lru_cache(maxsize=None)(self._plan)
 
@@ -91,11 +93,15 @@ class BlockPlan:
 
     def supports(self, m: int, n: int, dtype) -> bool:
         """True when the kernel takes an m×n panel (m ≥ n, the caller's
-        orientation): this element type, n ≥ 2, n_pad ≤ ``max_n_pad``
-        and (m + n_pad)·n_pad elements within ``max_bytes``."""
+        orientation): this element type, n ≥ 2, n_pad ≤ ``max_n_pad``,
+        (m + n_pad)·n_pad elements within ``max_bytes`` and m·max(n_pad,
+        128) within ``max_padded`` where it is set."""
         if dtype != self.dtype or n < 2 or m < n:
             return False
-        return (n + (n % 2) <= self.max_n_pad
+        n_pad = n + (n % 2)
+        if self.max_padded is not None and m * max(n_pad, 128) > self.max_padded:
+            return False
+        return (n_pad <= self.max_n_pad
                 and self.panel_bytes(m, n) <= self.max_bytes)
 
     def rows_per_thread(self, w2: int) -> int:

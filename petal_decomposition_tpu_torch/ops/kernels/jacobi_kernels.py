@@ -7,10 +7,10 @@ The port of ``petal_decomposition_tpu/ops/pallas/jacobi_kernels.py``
 the Hopper kernel ``csrc/jacobi_svd.cu`` is the float32 instance of the
 block Jacobi in ``csrc/jacobi_block.cuh``, which K3 shares (see
 ``jacobi_block.py``): blocks of w columns paired by the circle method,
-one cooperative CTA per block pair with its rows in registers, the
-whole panel on chip when it fits one CTA, and each block pair's rows
-split over R CTAs when they do not.  :func:`plan` picks (w, P, R),
-:func:`threads` the CTA's threads.
+one cooperative CTA per block pair with its rows in registers and the
+whole panel on chip when it fits one CTA.  :func:`plan` picks (w, P, R),
+:func:`threads` the CTA's threads; within K2's reach every plan has
+R = 1 (the row split serves K3's taller panels).
 
 On a CUDA tensor the wrapper launches that kernel (one launch per call);
 on a CPU tensor it runs :func:`_jacobi_svd_block_plain`, the same
@@ -33,21 +33,23 @@ from .jacobi_block import MAX_CTAS, MAX_THREADS, MAX_W2, SMEM_BUDGET, _warps
 
 __all__ = ["jacobi_svd_vmem", "supports", "plan", "build", "launches"]
 
-# The kernel's reach: n_pad ≤ 632 and (m + n_pad)·n_pad·4 ≤ 4 MiB of
-# panel and V.  That holds every panel the JAX kernel's gate admits
-# (``ops/pallas/jacobi_kernels.py:157-170``: m·max(n_pad, 128) ≤ 400,000
-# and a 10 MiB working set, so a square R up to 632×632, 3125×128,
-# 1024×110) and every panel one CTA's shared memory held (28,924×2,
-# 10000×4); 632×632 needs 3.2 MB, the 1024×43 Bᵀ 0.2 MB.  Taller panels
-# take the QR route in ``ops/jacobi.py`` with K2 on their R.  The plan's
-# time model, in SM cycles (``jacobi_block.CycleModel``): a float32 FMA
-# takes a warp one cycle of its SM sub-partition.
+# The kernel's reach is the JAX kernel's gate
+# (``ops/pallas/jacobi_kernels.py:157-170``): m·max(n_pad, 128) ≤ 400,000
+# (a square R up to 632×632, 3125×128, 1024×110).  Its 10 MiB working
+# set, n_pad ≤ 632 and 4 MiB of panel and V (632×632 needs 3.2 MB, the
+# 1024×43 Bᵀ 0.2 MB) follow from that.  Taller panels take the QR route
+# in ``ops/jacobi.py`` with K2 on their R, as in the JAX package; past
+# the gate that route measured faster than K2 on the panel itself
+# (``chip_smoke.py`` phase ``k2_reach``).  The plan's time model, in SM
+# cycles (``jacobi_block.CycleModel``): a float32 FMA takes a warp one
+# cycle of its SM sub-partition.
 _MAX_N_PAD = 632
 _MAX_BYTES = 4 << 20
-_PLAN = jacobi_block.BlockPlan(
-    torch.float32, _MAX_N_PAD, _MAX_BYTES,
-    jacobi_block.CycleModel(step=700, fma=7, shfl=27, outer=6000, v_rate=64),
-)
+_MAX_PADDED = 400_000
+_CYCLES = jacobi_block.CycleModel(step=700, fma=7, shfl=27, outer=6000,
+                                  v_rate=64)
+_PLAN = jacobi_block.BlockPlan(torch.float32, _MAX_N_PAD, _MAX_BYTES,
+                               _CYCLES, _MAX_PADDED)
 supports = _PLAN.supports
 rows_per_thread = _PLAN.rows_per_thread
 threads = _PLAN.threads
@@ -278,8 +280,7 @@ def jacobi_svd_vmem(a: torch.Tensor, *, max_sweeps: int = 30):
     if not supports(m, n, a.dtype):
         raise ValueError(
             f"a {m}x{n} panel is outside the kernel's reach (m >= n >= 2, "
-            f"n_pad <= {_MAX_N_PAD}, {_panel_bytes(m, n)} > {_MAX_BYTES} "
-            "bytes of panel and V)"
+            f"m * max(n_pad, 128) <= {_MAX_PADDED})"
         )
     w, p_count, r_count, mr = plan(m, n)
     if a.device.type == "cpu":

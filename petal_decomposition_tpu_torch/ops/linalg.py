@@ -33,6 +33,7 @@ __all__ = [
     "svddc",
     "svd_jit_cert",
     "eigh_psd_jit_cert",
+    "eigh_psd_jit",
     "qr",
     "cholesky_qr2",
     "lu_pl",
@@ -145,6 +146,12 @@ def eigh_psd_jit_cert(a: torch.Tensor):
         return _eigh_psd_k3(a)
     w, v = torch.linalg.eigh(a)
     return w, v, torch.zeros((), dtype=w.dtype, device=w.device)
+
+
+def eigh_psd_jit(a: torch.Tensor):
+    """:func:`eigh_psd_jit_cert` without the certificate."""
+    w, v, _ = eigh_psd_jit_cert(a)
+    return w, v
 
 
 def torch_svd(a: torch.Tensor):

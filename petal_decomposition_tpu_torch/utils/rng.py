@@ -75,6 +75,14 @@ def random_seed() -> int:
 
 def normal(gen: torch.Generator, shape, dtype: torch.dtype,
            device) -> torch.Tensor:
-    """Standard-normal draws of ``shape`` and real ``dtype`` on
-    ``device``, taken from the CPU generator ``gen``."""
-    return torch.randn(shape, generator=gen, dtype=dtype).to(device)
+    """Standard-normal draws of ``shape`` and ``dtype`` on ``device``,
+    taken from the CPU generator ``gen``.  A complex dtype draws the real
+    Gaussian of its real dtype and widens it, imaginary part zero, as
+    the reference's complex models do (pca.rs:701-705).
+
+    >>> w = normal(generator_from_seed(7), (2, 2), torch.complex128, "cpu")
+    >>> w.dtype, bool((w.imag == 0).all())
+    (torch.complex128, True)
+    """
+    real = dtype.to_real() if dtype.is_complex else dtype
+    return torch.randn(shape, generator=gen, dtype=real).to(device, dtype)

@@ -7,11 +7,13 @@ import pytest
 
 _MODULES = [
     "petal_decomposition_tpu_torch",
+    "petal_decomposition_tpu_torch.models.fast_ica",
     "petal_decomposition_tpu_torch.models.pca",
     "petal_decomposition_tpu_torch.models.randomized_pca",
     "petal_decomposition_tpu_torch.ops.centered",
     "petal_decomposition_tpu_torch.ops.gram_recovery",
     "petal_decomposition_tpu_torch.ops.linalg",
+    "petal_decomposition_tpu_torch.ops.splitmm",
     "petal_decomposition_tpu_torch.utils.profiling",
     "petal_decomposition_tpu_torch.utils.rng",
 ]

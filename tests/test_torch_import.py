@@ -32,7 +32,8 @@ def test_public_api():
 
     assert set(pt.__all__) >= {
         "Pca", "PcaBuilder", "RandomizedPca", "RandomizedPcaBuilder",
-        "DecompositionError", "InvalidInput", "LinalgError",
+        "FastIca", "FastIcaBuilder", "DecompositionError", "InvalidInput",
+        "LinalgError",
     }
     assert pt.__version__
     # Same taxonomy and messages as the JAX package's errors.

@@ -484,8 +484,8 @@ def smoke_panels():
     """The panels ``chip_smoke.py`` times K3 on: the 256×256 R and Gram
     of the exact float64 fit, BASELINE config 1's centered 1000×64, Bᵀ
     1024×42 of the float64 randomized fit, the 42×42 eigh of its
-    zero-pass Gram recovery and a 10000×50 panel split by blocks and
-    rows."""
+    zero-pass Gram recovery, config 3's 64×64 FastIca whitening Gram and
+    a 10000×50 panel split by blocks and rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sys.path.insert(0, str(ROOT))
@@ -498,7 +498,7 @@ def smoke_panels():
 @pytest.mark.parametrize("name", ["r_factor_256x256", "psd_gram_256x256",
                                   "config1_centered_1000x64", "bt_1024x42",
                                   "gram_recovery_eigh_42x42",
-                                  "split_10000x50"])
+                                  "split_10000x50", "fast_ica_gram_64x64"])
 def test_kernel_matches_block_plain_on_smoke_panels(smoke_panels, name):
     a = smoke_panels[name]
     _check_kernel(a, k3.jacobi_svd_vmem_f64, k3.plan(*a.shape)[0])

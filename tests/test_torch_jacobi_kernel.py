@@ -117,7 +117,7 @@ BLOCK_CASES = [
     ("full", 64, 64, 8, 4, 1),        # square, P = 4
     ("full", 30, 29, 1, 15, 1),       # w = 1: 29 outer steps of one pair
     ("full", 1024, 43, None, 2, 1),   # the flagship panel: P = 2 by plan
-    ("full", 20_000, 4, None, 1, 3),  # rows split over three CTAs
+    ("full", 3125, 4, None, 1, 1),    # the tallest 4-column panel in reach
     ("rankdef", 40, 10, None, 1, 1),
     ("rankdef", 40, 10, 2, 3, 1),
 ]
@@ -199,14 +199,17 @@ def test_pair_table_follows_the_tpu_permutation():
 # -- reach and block plan --------------------------------------------------
 
 def test_supports():
+    """The JAX kernel's gate, m·max(n_pad, 128) ≤ 400,000."""
     f = k2.supports
     assert f(1024, 43, F32)  # the flagship panel
     assert f(1024, 44, F32)
-    assert f(4096, 64, F32)
+    assert f(3125, 64, F32) and not f(3126, 64, F32)
+    assert not f(4096, 64, F32)  # the QR route's
     assert f(1000, 64, F32)  # BASELINE config 1's shape
     assert f(632, 632, F32)  # the largest R, 3.2 MB of panel and V
-    assert f(1027, 632, F32) and not f(1028, 632, F32)  # 4 MiB
-    assert f(524_286, 2, F32) and not f(524_287, 2, F32)
+    assert not f(633, 632, F32)
+    assert f(1333, 300, F32) and not f(1334, 300, F32)
+    assert f(3125, 2, F32) and not f(3126, 2, F32)
     assert not f(634, 633, F32)  # n_pad 634 > 632
     assert not f(200_000, 256, F32)  # tall: the QR route's
     assert not f(1024, 43, torch.float64)
@@ -227,8 +230,12 @@ def _widths():
 
 
 def test_supports_covers_the_jax_and_old_port_gates():
-    """Every float32 panel (m ≥ n ≥ 2) that the JAX kernel's gate or the
-    port's one-block gate admits is within reach, at the edges of both."""
+    """K2's reach is the JAX kernel's gate, at its edges and around the
+    port's old one-block gate; a panel the old gate admitted past the JAX
+    gate (28,924×2, say) takes QR + K2 on its R, as in the JAX
+    package."""
+    from petal_decomposition_tpu_torch.ops.jacobi import _route
+
     for n in _widths():
         n_pad = n + n % 2
         heights = {n, n + 1, 1000, 1024, 3125, 3126, 10_000, 28_924, 28_925,
@@ -236,8 +243,10 @@ def test_supports_covers_the_jax_and_old_port_gates():
                    400_000 // max(n_pad, 128) + 1,
                    (232_448 - 1024) // (4 * n_pad) - n_pad - 2}
         for m in sorted(h for h in heights if h >= n):
-            if jax_k2.supports(m, n, np.float32) or _old_port_gate(m, n):
-                assert k2.supports(m, n, F32), (m, n)
+            gate = bool(jax_k2.supports(m, n, np.float32))
+            assert k2.supports(m, n, F32) is gate, (m, n)
+            if _old_port_gate(m, n) and not gate:
+                assert _route(m, n, F32, "cuda") == "qr_k2", (m, n)
 
 
 @pytest.mark.parametrize(
@@ -248,27 +257,32 @@ def test_supports_covers_the_jax_and_old_port_gates():
         (1000, 64, (8, 4, 1, 1000)),      # direct: BASELINE config 1's shape
         (256, 256, (16, 8, 1, 256)),      # R of the exact 200k×256 fit
         (632, 632, (8, 40, 1, 632)),      # the widest R
-        (20_000, 50, (13, 2, 23, 870)),   # rows split, with two block pairs
-        (524_286, 2, (1, 1, 40, 13_108)),  # the tallest panel
-        (28_924, 2, (1, 1, 3, 9642)),
-        (10_000, 4, (1, 2, 1, 10_000)),
-        (20_000, 4, (2, 1, 3, 6668)),
+        (3125, 128, (4, 16, 1, 3126)),    # the gate's tallest at 128
+        (3125, 2, (1, 1, 1, 3126)),       # the tallest panel
+        (3125, 4, (2, 1, 1, 3126)),
+        (3125, 16, (4, 2, 1, 3126)),
+        (1332, 300, (4, 38, 1, 1332)),
     ],
 )
 def test_plan_of_the_served_panels(m, n, want):
     assert k2.plan(m, n) == want
 
 
+def _tallest(n):
+    """The most rows supports() takes at n columns."""
+    return 400_000 // max(n + n % 2, 128)
+
+
 def test_plan_serves_the_tallest_panel_of_every_width():
-    """The tallest panel supports() takes at each n gets a plan, and so,
-    since a plan that fits m rows also fits fewer, every panel does."""
+    """The tallest panel supports() takes at each n gets a plan, with
+    every block pair's rows in one CTA (R = 1), and so, since a plan that
+    fits m rows also fits fewer, every panel does."""
     for n in range(2, 633):
-        n_pad = n + n % 2
-        m_max = (4 << 20) // (4 * n_pad) - n_pad
+        m_max = _tallest(n)
         if m_max >= n:
             w, p, r, mr = k2.plan(m_max, n)
             assert 2 * w * p >= n and r * mr >= m_max
-            assert p * r <= k2.MAX_CTAS
+            assert p * r <= k2.MAX_CTAS and r == 1
 
 
 def _corners(n):
@@ -277,7 +291,7 @@ def _corners(n):
     panel, and where one CTA stops holding the rows of a block pair of
     2, 4 or n_pad columns."""
     n_pad = n + n % 2
-    m_max = (4 << 20) // (4 * n_pad) - n_pad
+    m_max = _tallest(n)
     edges = [n, m_max, (n + m_max) // 2]
     for w2 in {2, 4, min(n_pad, k2.MAX_W2)}:
         rpt = k2.rows_per_thread(w2)
@@ -450,12 +464,12 @@ def test_kernel_rows_split_on_small_panels(cuda_device, monkeypatch, kind, m,
     "kind,m,n",
     [("full", 1024, 43), ("full", 1024, 44), ("rankdef", 512, 20),
      ("full", 1000, 64), ("full", 256, 256), ("full", 632, 632),
-     ("full", 3125, 128), ("full", 20_000, 4), ("full", 20_000, 50),
-     ("full", 524_286, 2)],
+     ("full", 3125, 128), ("full", 3125, 4), ("full", 1332, 300),
+     ("full", 3125, 2)],
 )
 def test_kernel_matches_plain_on_card(cuda_device, kind, m, n):
-    """Served shapes under the wrapper's own plan, the row-split tall
-    panels included; up to 64 columns the TPU kernel's order agrees on σ
+    """Served shapes under the wrapper's own plan, the tallest panels
+    within reach included; up to 64 columns the TPU kernel's order agrees on σ
     too (wider, its c = 1 drift leaves the float32 band: 2.9e-5 of σ₁
     on the 256×256 panel here)."""
     a = torch.from_numpy(_panel(kind, m, n)).to(cuda_device)
@@ -482,7 +496,8 @@ def smoke_panels():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["bt_1024x43", "r_factor_64x64",
                                   "config1_f32_1000x64", "r_factor_256x256",
-                                  "r_factor_632x632", "split_20000x50"])
+                                  "r_factor_632x632",
+                                  "fast_ica_r_factor_64x64"])
 def test_kernel_matches_block_plain_on_smoke_panels(smoke_panels, name):
     a = smoke_panels[name]
     _check_kernel(a, k2.plan(*a.shape)[0])

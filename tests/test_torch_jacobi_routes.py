@@ -29,7 +29,7 @@ F32, F64 = torch.float32, torch.float64
         (1000, 64, F32, "cuda", "k2"),          # within K2's 4 MiB
         (200_000, 256, F32, "cuda", "qr_k2"),   # the smoke run's wide fit
         (20_000, 632, F32, "cuda", "qr_k2"),    # the widest R K2 takes
-        (5000, 169, F32, "cuda", "k2"),
+        (5000, 169, F32, "cuda", "qr_k2"),     # past the JAX gate
         (5000, 300, F32, "cuda", "qr_k2"),      # no m ≥ 3n rule for f32
         (1500, 600, F64, "cuda", "torch"),      # beyond K3's n_pad ≤ 512
         (5000, 633, F32, "cuda", "torch"),      # beyond K2's R factor
@@ -38,6 +38,9 @@ F32, F64 = torch.float32, torch.float64
         (16_384, 64, F64, "cpu", "qr_plain"),   # m·n = 2²⁰
         (16_383, 64, F64, "cpu", "plain"),
         (1000, 64, F32, "cpu", "plain"),
+        (3125, 128, F32, "cuda", "k2"),         # the JAX gate: 400,000
+        (3126, 128, F32, "cuda", "qr_k2"),
+        (10_000, 16, F32, "cuda", "qr_k2"),
     ],
 )
 def test_route(m, n, dtype, device, route):

@@ -325,11 +325,8 @@ def _jax_prefers_gram(n, d):
     return not (direct_ok or qr_precond_ok) and n >= 8 * d
 
 
-def test_qr_k2_route_matches_jax_pca_at_256(monkeypatch):
-    """Exact float32 Pca of a 256-wide table through the rung the card
-    takes (QR + K2 on the 256×256 R, forced here on the CPU, where K2's
-    wrapper runs its block plain version) against the JAX package's Pca
-    at the float32 band."""
+def _count_k2_block_plain(monkeypatch):
+    """Record the shape of each panel K2's block plain version gets."""
     calls = []
     real = k2._jacobi_svd_block_plain
 
@@ -338,12 +335,62 @@ def test_qr_k2_route_matches_jax_pca_at_256(monkeypatch):
         return real(a, max_sweeps, w)
 
     monkeypatch.setattr(k2, "_jacobi_svd_block_plain", counted)
+    return calls
+
+
+def test_qr_k2_route_matches_jax_pca_at_256(monkeypatch):
+    """Exact float32 Pca through the rung the card takes for a table of
+    256 columns (QR + K2 on the R, forced here on the CPU, where K2's
+    wrapper runs its block plain version) against the JAX package's Pca
+    at the float32 band.  The table is 4000×64 and not 256 wide, as the
+    test's name still says: its 64×64 R is the narrowest whose plan pairs
+    blocks across CTAs as the 256×256 R's does (P ≥ 2), and the block
+    plain version takes minutes on a 256×256 R."""
+    calls = _count_k2_block_plain(monkeypatch)
     monkeypatch.setattr(config, "linalg_backend", "jacobi")
     monkeypatch.setattr(jacobi, "_route", lambda m, n, dtype, dev: "qr_k2")
-    x = _low_rank(4000, 256, seed=25)
+    assert k2.plan(256, 256)[1] >= 2 and k2.plan(64, 64)[1] >= 2
+    x = _low_rank(4000, 64, seed=25)
     m, _ = _assert_same(x, 8, BAND[np.float32])
-    assert calls == [(256, 256)]
+    assert calls == [(64, 64)]
     assert m.singular_values_.dtype == torch.float32
+
+
+@pytest.mark.parametrize("rung", ["k2", "qr_k2"])
+def test_k2_direct_where_the_jax_gate_takes_qr_k2(monkeypatch, rung):
+    """Both sides of the JAX kernel's gate (m·max(n_pad, 128) ≤ 400k) at
+    16 columns: the 3125×16 float32 panel, the tallest the gate admits,
+    goes to K2 directly, and 10000×16 (1.28M) to QR + K2 on its R, on the
+    card's ladder as in the JAX package.  Each rung, forced on the CPU
+    through K2's block plain version, gives the JAX package's Pca at the
+    float32 band."""
+    from petal_decomposition_tpu.ops.pallas import jacobi_kernels as jk
+
+    m = 3125 if rung == "k2" else 10_000
+    assert bool(jk.supports(m, 16, np.float32)) is (rung == "k2")
+    assert k2.supports(m, 16, torch.float32) is (rung == "k2")
+    assert jacobi._route(m, 16, torch.float32, "cuda") == rung
+    calls = _count_k2_block_plain(monkeypatch)
+    monkeypatch.setattr(config, "linalg_backend", "jacobi")
+    monkeypatch.setattr(jacobi, "_route", lambda m_, n_, dtype, dev: rung)
+    x = _decaying(m, 16, seed=26)
+    _assert_same(x, 8, BAND[np.float32])
+    assert calls == [(m, 16) if rung == "k2" else (16, 16)]
+
+
+def test_direct_k2_is_the_jax_gate():
+    """Over a grid of float32 panels the ladder hands K2 directly exactly
+    the panels the JAX kernel's gate takes directly."""
+    from petal_decomposition_tpu.ops.pallas import jacobi_kernels as jk
+
+    for n in (2, 16, 43, 64, 127, 128, 169, 300, 632):
+        for m in sorted({n, 1024, 3124, 3125, 3126, 5000, 10_000, 28_924,
+                         100_000}):
+            if m >= n:
+                gate = bool(jk.supports(m, n, np.float32))
+                assert k2.supports(m, n, torch.float32) is gate, (m, n)
+                assert (jacobi._route(m, n, torch.float32, "cuda")
+                        == ("k2" if gate else "qr_k2")), (m, n)
 
 
 def test_auto_prefers_gram_follows_the_jax_package():

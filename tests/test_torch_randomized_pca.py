@@ -262,10 +262,13 @@ def test_errors_match_jax():
         assert str(e) == str(e_j)
     for bad in ({"range_finder": "x"}, {"gram_precision": "x"},
                 {"gram_projection": "x"}, {"finder_precision": "x"},
-                {"power_iteration_normalizer": "x"}, {"mesh": object()}):
+                {"power_iteration_normalizer": "x"}):
         with pytest.raises(ValueError):
             pt.RandomizedPca(2, seed=0, device="cpu", **bad)
-    with pytest.raises(ValueError, match="mesh"):
+    # A mesh is valid in the JAX package and not ported yet.
+    with pytest.raises(NotImplementedError, match="item 8"):
+        pt.RandomizedPca(2, seed=0, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 8"):
         pt.RandomizedPcaBuilder(2).mesh(object()).build()
 
 

@@ -7,7 +7,8 @@ Builds variants of K2 (``csrc/jacobi_svd.cu`` with the shared
 ``csrc/jacobi_block.cuh``; generated copies under ``build/k2_variants/``,
 never in ``csrc/``) and runs each on seeded Gaussian float32 panels with
 column scales 1 to 10 (1024×43, the randomized fit's Bᵀ shape; 256×256;
-632×632; 20,000×50, rows split over CTAs), under the package's plan:
+632×632; 3125×128, the tallest 128-wide panel in reach), under the
+package's plan:
 
 * ``kernel``: the sources as they are;
 * ``c_rounds_to_1``: the rotation applied as fma(c − 1, x, x − s·y), so
@@ -44,7 +45,7 @@ from k3_compare import spread_ms  # noqa: E402
 
 CSRC = HERE / "petal_decomposition_tpu_torch" / "csrc"
 OUT = HERE / "build" / "k2_variants"
-PANELS = ((1024, 43), (256, 256), (632, 632), (20_000, 50))
+PANELS = ((1024, 43), (256, 256), (632, 632), (3125, 128))
 FIXED_SWEEPS = 6
 
 _ROTATE = ("  x = xa + fmaf(r.x, xa, -r.y * xb);\n"
