@@ -26,7 +26,15 @@ through the entry points a user calls:
   eigh and decorrelates through it, float32 whitens through QR + K2 on
   the 64×64 R; with the parts of one step timed, the recovered sources
   checked and 30-iteration fits at three seeds held against the same fits
-  on the CPU.
+  on the CPU;
+* the streamed fits from host blocks: ``RandomizedPca(32).fit_batched``
+  on the north-star stream (16 blocks of 65536 × 4096 float32, 16 GiB;
+  with its feed's parts, the card's busy share and the in-core fit of
+  the same matrix), exact ``Pca(32).fit_batched`` on it and on the
+  200,000 × 256 float64 table (K3 on the 256² Gram), BASELINE config 2
+  streamed (K3 on the Gram recovery's two 42×42 eighs), ``partial_fit``
+  one block a call against ``fit_batched``, and config 3 streamed
+  through ``FastIca.fit_batched`` (K3 whitens in float64).
 
 K2's σ is checked at the edges of its reach (the JAX kernel's gate), and
 past the gate QR + K2 on R is timed beside K2 on the panel itself
@@ -46,8 +54,8 @@ Jacobi kernels' rotations (this run's sweeps of n(n−1)/2 column pairs
 each, the fewer of the kernel's and the TPU kernel's order's) at
 67 TFLOP/s, float32 outside the tensor cores or float64 on them.  The
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
-or without the package beside it, the script fails before printing any
-result.
+or without the package beside it, the script exits with code 2 and a
+message, before printing any result.
 """
 
 from __future__ import annotations
@@ -1228,6 +1236,524 @@ def phase_fast_ica_card_vs_cpu(ctx):
     return {"phase": "fast_ica_card_vs_cpu", "checks": checks}
 
 
+# -- streamed fits: the north-star stream, configs 2 and 3 streamed ------
+
+# benchmarks/north_star.py's stream: 16 host blocks of 65536 × 4096 float32.
+NS_BLOCKS, NS_ROWS, NS_D = 16, 65536, 4096
+NS_N = NS_BLOCKS * NS_ROWS
+
+
+@contextlib.contextmanager
+def prefetch_depth(depth: int):
+    """Run the block with ``PETAL_STREAM_PREFETCH`` set to ``depth``."""
+    import os
+
+    old = os.environ.get("PETAL_STREAM_PREFETCH")
+    os.environ["PETAL_STREAM_PREFETCH"] = str(depth)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PETAL_STREAM_PREFETCH"]
+        else:
+            os.environ["PETAL_STREAM_PREFETCH"] = old
+
+
+def north_star_blocks(dev):
+    """The north-star stream as 16 host (numpy) blocks: ``make_data``'s
+    low rank plus noise with one basis and one mean across the blocks,
+    made on the card and copied to host memory; and the stream's float64
+    column sums, ‖X‖²_F and XᵀX, taken on the card block by block."""
+    import torch
+
+    f64 = torch.float64
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 20)
+    basis = torch.linalg.qr(
+        torch.randn(NS_D, K, generator=g, device=dev)).Q.T
+    scale = 3.0 * 0.9 ** torch.arange(K, device=dev, dtype=torch.float32)
+    mean = 0.1 * torch.randn(NS_D, generator=g, device=dev)
+    cs = torch.zeros(NS_D, dtype=f64, device=dev)
+    sq = torch.zeros((), dtype=f64, device=dev)
+    gram = torch.zeros((NS_D, NS_D), dtype=f64, device=dev)
+    blocks = []
+    for _ in range(NS_BLOCKS):
+        x = 0.05 * torch.randn(NS_ROWS, NS_D, generator=g, device=dev)
+        x += (torch.randn(NS_ROWS, K, generator=g, device=dev)
+              * scale) @ basis
+        x += mean
+        c = x.double()
+        cs += c.sum(0)
+        sq += (c * c).sum()
+        gram += c.mT @ c
+        blocks.append(x.cpu().numpy())
+        del x, c
+    return blocks, cs, sq, gram
+
+
+def centered_sigma(cs, gram, n, k=K):
+    """Top-k σ of the centered data from its float64 moments."""
+    import torch
+
+    mu = cs / n
+    gc = gram - n * torch.outer(mu, mu)
+    return torch.linalg.eigvalsh(gc).flip(0)[:k].clamp(min=0).sqrt()
+
+
+def host_gbps(nbytes: int, fn) -> float:
+    """GB/s of ``fn`` moving ``nbytes``, by the host clock around it
+    with the card synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return nbytes / (time.perf_counter() - t0) / 1e9
+
+
+def feed_rates(blocks, dev):
+    """The host→device feed of the north-star blocks, piece by piece, in
+    GB/s: the stream's pipeline alone (``_device_prefetch`` at depth 2,
+    nothing computed; the second of two passes, the first allocating the
+    pinned ring), a pinned 1 GiB block's copy to the card (CUDA events,
+    median of 5), and the host copy of the pageable blocks into a pinned
+    buffer (``torch`` ``copy_``, which PyTorch runs on its CPU threads,
+    as the pipeline's worker does).  ``tools/feed_variants.py`` times the
+    alternatives the pipeline does not take."""
+    import torch
+
+    from petal_decomposition_tpu_torch.models import streaming as pst
+
+    nbytes = blocks[0].nbytes
+
+    def pipeline():
+        with prefetch_depth(2):
+            for _ in pst._device_prefetch(iter(blocks), dev):
+                pass
+
+    pipeline()
+    out = {"pipeline_only": host_gbps(NS_BLOCKS * nbytes, pipeline)}
+    pinned = torch.empty(blocks[0].shape, pin_memory=True)
+    pinned.copy_(torch.from_numpy(blocks[0]))
+    devb = torch.empty(blocks[0].shape, device=dev)
+    out["pinned_h2d"] = nbytes / cuda_ms(
+        lambda: devb.copy_(pinned, non_blocking=True), 5) / 1e6
+
+    def staged_torch():
+        for b in blocks:
+            pinned.copy_(torch.from_numpy(b))
+
+    out["host_to_pinned_torch"] = host_gbps(NS_BLOCKS * nbytes, staged_torch)
+    out["torch_threads"] = torch.get_num_threads()
+    return out
+
+
+def device_busy(prof, wall_ms: float) -> dict:
+    """Busy shares of the card over a profiled fit: the union of its
+    kernels' intervals, of its copies', and of both, over the fit's
+    host wall time; None where the profiler recorded no device event."""
+    import torch
+
+    kernels, copies = [], []
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        (copies if "memcpy" in e.name.lower() else kernels).append(span)
+
+    def union_ms(spans):
+        total, end = 0.0, -math.inf
+        for a, b in sorted(spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total / 1e3
+
+    if not kernels:
+        return {"kernels": None, "copies": None, "any": None}
+    return {"kernels": union_ms(kernels) / wall_ms,
+            "copies": union_ms(copies) / wall_ms,
+            "any": union_ms(kernels + copies) / wall_ms,
+            "kernel_events": len(kernels), "copy_events": len(copies)}
+
+
+@phase
+def phase_stream_north_star(ctx):
+    """BASELINE's north-star shape streamed, literally
+    ``benchmarks/north_star.py``'s stream: ``RandomizedPca(32).fit_batched``
+    over 16 host blocks of 65536 × 4096 float32 (1,048,576 × 4096, 16 GiB),
+    which runs no hand-written kernel (the IEEE-float32 Gram, f32 eighs of
+    two 42×42 matrices).  Fit ms (median of 3) at prefetch depth 2 and 0,
+    ingest GB/s, the feed's parts (:func:`feed_rates`), one block's
+    ``_accum_step`` and Gram alone (CUDA events), the card's busy share
+    over a fit (``torch.profiler``), and the in-core fit of the same
+    matrix on the card.  Gates: σ within 1e-4 relative of the float64
+    moments' (the randomized fits' band here; the Gram grade puts
+    ≈ eps₃₂·(σ₁/σ₃₂)² ≈ 4e-5 on σ₃₂ at most), within 1e-5·σ₁ of the
+    in-core fit at the same seed (the same recovery from two float32
+    Grams), prefetch on and off bitwise equal (the check that no pinned
+    buffer is reused early), and the mean-shift ratio under 1e-2."""
+    import torch
+
+    from petal_decomposition_tpu_torch.models import streaming as pst
+    from petal_decomposition_tpu_torch.ops.linalg import ieee_f32
+
+    api, dev = ctx.api, ctx.dev
+    t0 = time.perf_counter()
+    blocks, cs, sq, gram = north_star_blocks(dev)
+    ctx.ns_blocks = blocks
+    ctx.ns_sigma = sigma_ref = centered_sigma(cs, gram, NS_N)
+    make_s = time.perf_counter() - t0
+    del gram
+    torch.cuda.empty_cache()
+    nbytes = sum(b.nbytes for b in blocks)
+
+    def fit(depth):
+        with prefetch_depth(depth):
+            return api.RandomizedPca(K, seed=SEED, device=CUDA).fit_batched(
+                blocks)
+
+    def fit_ms(depth, reps):
+        ms, model = [], None
+        for _ in range(reps):
+            model = fit(depth)
+            ms.append(model.last_fit_stats_.wall_time_s * 1e3)
+        return ms, model
+
+    kernels = {"sketch_moments": ctx.k1, "jacobi_svd": ctx.k2,
+               "jacobi_svd_f64": ctx.k3}
+    fit(2)  # warm-up
+    for mod in kernels.values():
+        mod.launches = 0
+    ms2, m2 = fit_ms(2, 3)
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    ms0, m0 = fit_ms(0, 2)
+    s = m2.singular_values_.double()
+    sig = float(((s - sigma_ref).abs() / sigma_ref).max())
+    require(sig <= 1e-4, f"north-star stream σ relative error {sig} > 1e-4")
+    require(torch.equal(m2.singular_values_, m0.singular_values_)
+            and torch.equal(m2.components_, m0.components_)
+            and torch.equal(m2.mean_, m0.mean_),
+            "north-star stream: prefetch depth 2 and 0 differ")
+    ratio = m2.last_fit_stats_.extra["mean_shift_ratio"]
+    require(ratio < 1e-2, f"north-star mean-shift ratio {ratio}")
+    require(m2.last_fit_stats_.extra["streamed_blocks"] == NS_BLOCKS,
+            "north-star stream: not 16 blocks")
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        mp = fit(2)
+    busy = device_busy(prof, mp.last_fit_stats_.wall_time_s * 1e3)
+
+    devb = torch.from_numpy(blocks[0]).to(dev)
+    carry = (torch.zeros((NS_D, NS_D), dtype=torch.float64, device=dev),
+             torch.zeros(NS_D, dtype=torch.float64, device=dev),
+             torch.zeros((), dtype=torch.float64, device=dev))
+    shift = devb.double().mean(0)
+    accum_ms = cuda_ms(
+        lambda: pst._accum_step(carry, devb, shift, precision="high"), 5)
+    with ieee_f32():
+        gram_ms = cuda_ms(lambda: devb.mT @ devb, 5)
+    del devb, carry
+    feed = feed_rates(blocks, dev)
+
+    # The in-core fit of the same 16 GiB matrix on the card.
+    x = torch.empty((NS_N, NS_D), device=dev)
+    for i, b in enumerate(blocks):
+        x[i * NS_ROWS:(i + 1) * NS_ROWS].copy_(torch.from_numpy(b))
+    api.RandomizedPca(K, seed=SEED, device=CUDA).fit(x)  # warm-up
+    incore_ms, _, incore = timed_fits(
+        lambda: api.RandomizedPca(K, seed=SEED, device=CUDA), x, {})
+    del x
+    torch.cuda.empty_cache()
+    s_in = incore.singular_values_.double()
+    vs_incore = float((s - s_in).abs().max() / s_in[0])
+    require(vs_incore <= 1e-5,
+            f"north-star stream vs in-core σ {vs_incore} > 1e-5·σ₁")
+    med2 = statistics.median(ms2)
+    # The least time for the stream: its bytes over the link's measured
+    # pinned rate, or 16 Grams at float32's peak outside the tensor cores.
+    flops = 2.0 * NS_N * NS_D * NS_D
+    return {"phase": "stream_north_star", "x": [NS_N, NS_D],
+            "blocks": [NS_BLOCKS, NS_ROWS], "k": K,
+            "route": "fit_batched: IEEE-f32 Gram per block, f64 carry, "
+                     "zero-pass Gram recovery",
+            "data_s": make_s, "fit_ms_depth2": ms2, "fit_ms_median": med2,
+            "fit_ms_depth0": ms0,
+            "ingest_gb_s": nbytes / (med2 / 1e3) / 1e9,
+            "launches_per_3_fits": launches,
+            "feed_gb_s": feed,
+            "h2d_alone_ms_at_pinned_rate": nbytes / feed["pinned_h2d"] / 1e6,
+            "accum_step_one_block_ms": accum_ms,
+            "gram_one_block_ms": gram_ms,
+            "gram_tflop_s": flops / NS_BLOCKS / (gram_ms / 1e3) / 1e12,
+            "device_busy_share": busy,
+            "compute_idle_share_from_events": 1 - (
+                NS_BLOCKS * accum_ms / med2),
+            "incore_fit_ms": incore_ms,
+            "incore_fit_ms_median": statistics.median(incore_ms),
+            "sigma_rel_err_vs_f64": sig, "sigma_vs_incore": vs_incore,
+            "mean_shift_ratio": ratio,
+            "prefetch_on_off_bitwise_equal": True}
+
+
+@phase
+def phase_stream_exact(ctx):
+    """Exact ``Pca(32).fit_batched``: on the north-star stream (float32;
+    σ within 1e-4 of the float64 moments', through cuSOLVER's eigh of the
+    4096² Gram) and on the 200,000 × 256 float64 table in 65536-row blocks
+    (σ within 1e-9·σ₁ of the centered table's singular values, the Gram
+    grade; K3 once a fit, on the 256² Gram); with the time of each eigh
+    inside the fit."""
+    import torch
+
+    api, k3, linalg = ctx.api, ctx.k3, ctx.linalg
+    from petal_decomposition_tpu_torch.models import streaming as pst
+
+    blocks = ctx.ns_blocks
+    api.Pca(K, device=CUDA).fit_batched(blocks)  # warm-up
+    ms32 = []
+    for _ in range(2):
+        m32 = api.Pca(K, device=CUDA).fit_batched(blocks)
+        ms32.append(m32.last_fit_stats_.wall_time_s * 1e3)
+    s_ref = ctx.ns_sigma
+    sig32 = float(((m32.singular_values_.double() - s_ref).abs()
+                   / s_ref).max())
+    require(sig32 <= 1e-4, f"exact f32 stream σ error {sig32} > 1e-4")
+    moments = pst.accumulate_moments(blocks, device=CUDA)
+    g32 = moments.gram.float()
+    eigh32_ms = cuda_ms(lambda: linalg.eigh_psd_jit_cert(g32), 3)
+    del moments, g32
+
+    x64 = pca64_data(ctx.dev)
+    s64 = torch.linalg.svdvals(x64 - x64.mean(0))
+    host64 = x64.cpu().numpy()
+    del x64
+    api.Pca(K, device=CUDA).fit_batched(host64)  # warm-up
+    k3.launches = 0
+    fit_ms64, counts = [], []
+    for _ in range(3):
+        m64 = api.Pca(K, device=CUDA).fit_batched(host64)
+        fit_ms64.append(m64.last_fit_stats_.wall_time_s * 1e3)
+        counts.append(k3.launches)
+    launches = {"jacobi_svd_f64": k3.launches}
+    require(counts == [1, 2, 3], f"K3 not once a float64 stream {counts}")
+    ctx.add_launches(launches)
+    sig64 = float((m64._singular_full - s64).abs().max() / s64[0])
+    require(sig64 <= 1e-9, f"exact f64 stream σ error {sig64} > 1e-9·σ₁")
+    g64 = pst.accumulate_moments(host64, device=CUDA).gram
+    eigh64_ms = cuda_ms(lambda: linalg.eigh_psd_jit_cert(g64), 5)
+    ctx.host64 = host64
+    return {"phase": "stream_exact",
+            "f32": {"x": [NS_N, NS_D], "fit_ms": ms32,
+                    "sigma_rel_err_vs_f64": sig32,
+                    "eigh_4096_cusolver_ms": eigh32_ms},
+            "f64": {"x": [N64, D64], "block_rows": 65536,
+                    "fit_ms": fit_ms64,
+                    "fit_ms_median": statistics.median(fit_ms64),
+                    "launches_per_3_fits": launches,
+                    "sigma_err_over_sigma1": sig64,
+                    "eigh_256_k3_ms": eigh64_ms}}
+
+
+@phase
+def phase_stream_randomized_f64(ctx):
+    """BASELINE config 2 streamed: ``RandomizedPca(32).fit_batched`` of the
+    100,000 × 1024 float64 table from host blocks; its Gram recovery's two
+    42×42 eighs are K3.  σ within 1e-9·σ₁ of the in-core zero-pass
+    Gram-recovery fit at the same seed (the same Ω and recovery, from two
+    float64 Grams)."""
+    import torch
+
+    api, k3 = ctx.api, ctx.k3
+    x = randomized64_data(ctx.dev)
+    host = x.cpu().numpy()
+    incore = gram_recovery_model(api, CUDA).fit(x)
+    del x
+
+    def make():
+        return api.RandomizedPca(K, seed=SEED, device=CUDA)
+
+    make().fit_batched(host)  # warm-up
+    k3.launches = 0
+    fit_ms, counts = [], []
+    for _ in range(3):
+        m = make().fit_batched(host)
+        fit_ms.append(m.last_fit_stats_.wall_time_s * 1e3)
+        counts.append(k3.launches)
+    require(counts == [2, 4, 6], f"K3 not twice a config-2 stream {counts}")
+    launches = {"jacobi_svd_f64": k3.launches}
+    ctx.add_launches(launches)
+    s, s_in = m.singular_values_, incore.singular_values_
+    sig = float((s - s_in).abs().max() / s_in[0])
+    require(sig <= 1e-9, f"config-2 stream vs in-core σ {sig} > 1e-9·σ₁")
+    del host
+    torch.cuda.empty_cache()
+    return {"phase": "stream_randomized_f64", "x": [NR, DR], "k": K,
+            "route": "fit_batched: f64 Gram, zero-pass recovery, K3 eighs",
+            "fit_ms": fit_ms, "fit_ms_median": statistics.median(fit_ms),
+            "incore_fit_ms": incore.last_fit_stats_.wall_time_s * 1e3,
+            "launches_per_3_fits": launches, "sigma_vs_incore": sig}
+
+
+@phase
+def phase_partial_fit(ctx):
+    """``Pca(32).partial_fit``: the 200k × 256 float64 table one 65536-row
+    block a call (with a malformed call between, which must leave the
+    stream as it was), then the 16 north-star blocks one a call.  After
+    the last call σ and components equal ``fit_batched`` on the same
+    blocks, within 1e-10 (float64) and 1e-5 (float32) relative."""
+    import numpy as np
+
+    api, k3 = ctx.api, ctx.k3
+    host64 = ctx.host64
+    parts = [host64[i:i + 65536] for i in range(0, N64, 65536)]
+    ref64 = api.Pca(K, device=CUDA).fit_batched(parts)
+    k3.launches = 0
+    m = api.Pca(K, device=CUDA)
+    call_ms = []
+    for i, part in enumerate(parts):
+        m.partial_fit(part)
+        call_ms.append(m.last_fit_stats_.wall_time_s * 1e3)
+        if i == 1:
+            rows = m._n_samples
+            try:
+                m.partial_fit([part, np.zeros((10, D64 + 1))])
+            except api.InvalidInput:
+                pass
+            else:
+                require(False, "a malformed partial_fit call was accepted")
+            require(m._n_samples == rows and m._stream.n == rows,
+                    "a failed partial_fit call changed the stream")
+    launches = {"jacobi_svd_f64": k3.launches}
+    require(k3.launches == len(parts), "K3 not once a float64 call")
+    ctx.add_launches(launches)
+
+    def agreement(a, b):
+        s = float(((a.singular_values_ - b.singular_values_).abs()
+                   / b.singular_values_).max())
+        c = rel_max(a.components_, b.components_)
+        return s, c
+
+    s64, c64 = agreement(m, ref64)
+    require(s64 <= 1e-10 and c64 <= 1e-10,
+            f"float64 partial_fit vs fit_batched σ {s64}, components {c64}")
+    blocks = ctx.ns_blocks
+    ref32 = api.Pca(K, device=CUDA).fit_batched(blocks)
+    m32 = api.Pca(K, device=CUDA)
+    call32_ms = []
+    for b in blocks:
+        m32.partial_fit(b)
+        call32_ms.append(m32.last_fit_stats_.wall_time_s * 1e3)
+    s32, c32 = agreement(m32, ref32)
+    require(s32 <= 1e-5 and c32 <= 1e-5,
+            f"float32 partial_fit vs fit_batched σ {s32}, components {c32}")
+    require(m32.last_fit_stats_.extra["partial_fit_calls"] == NS_BLOCKS,
+            "partial_fit_calls not recorded")
+    del ctx.ns_blocks, ctx.host64
+    return {"phase": "partial_fit",
+            "f64": {"x": [N64, D64], "calls": len(parts),
+                    "call_ms": call_ms, "launches": launches,
+                    "sigma_rel_vs_fit_batched": s64,
+                    "components_rel_vs_fit_batched": c64},
+            "f32": {"x": [NS_N, NS_D], "calls": NS_BLOCKS,
+                    "call_ms": call32_ms,
+                    "sigma_rel_vs_fit_batched": s32,
+                    "components_rel_vs_fit_batched": c32}}
+
+
+@phase
+def phase_stream_fast_ica(ctx):
+    """BASELINE config 3 streamed: ``FastIca.fit_batched`` of the 100k × 64
+    Laplace mixture from host blocks through a callable re-iterable, two
+    passes.  float64 at full precision against the in-core
+    ``whiten_solver="eigh"`` fit at the same seed: the same n_iter and
+    components within 1e-6 relative (the JAX package's streamed band; its
+    whitened inputs differ by float64 accumulation roundoff only).
+    float64 and float32 at the card's defaults: Amari distance ≤
+    ``AMARI_MAX`` and every source recovered one to one, as
+    ``fast_ica_config3`` checks.  Fit ms, iterations a second and the
+    whitened buffer's fill time (the second pass, host clock around it)."""
+    import torch
+
+    from petal_decomposition_tpu_torch.models import streaming as pst
+
+    api, k3 = ctx.api, ctx.k3
+    s, a = ica_sources(ctx.dev)
+    x64 = s @ a.mT
+    del s
+    fills = []
+    real_fill = pst._fill_pass
+
+    def timed_fill(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_fill(*args, **kw)
+        torch.cuda.synchronize()
+        fills.append((time.perf_counter() - t0) * 1e3)
+
+    out = {}
+    pst._fill_pass = timed_fill
+    try:
+        for name, x, knobs in (
+                ("f64_full", x64, {"iteration_precision": "full"}),
+                ("f64_defaults", x64, {}),
+                ("f32_defaults", x64.float(), {})):
+            host = x.cpu().numpy()
+            parts = [host[i:i + 65536] for i in range(0, NI, 65536)]
+
+            def stream():
+                return iter(parts)
+
+            ica_model(api, CUDA, **knobs).fit_batched(stream)  # warm-up
+            fit_ms, counts = [], []
+            for _ in range(3):
+                k3.launches = 0
+                fills.clear()
+                m = ica_model(api, CUDA, **knobs).fit_batched(stream)
+                fit_ms.append(m.last_fit_stats_.wall_time_s * 1e3)
+                counts.append(k3.launches)
+            if x.dtype == torch.float64:
+                require(all(c > 0 for c in counts),
+                        f"streamed FastIca {name} launched no K3")
+            for c in counts:
+                ctx.add_launches({"jacobi_svd_f64": c})
+            comp = m.components_.double()
+            amari = amari_distance(comp @ a)
+            require(amari <= AMARI_MAX,
+                    f"streamed FastIca {name}: Amari distance {amari}")
+            ratio = sources_recovered(comp @ a)
+            require(ratio >= SOURCE_RATIO_MIN,
+                    f"streamed FastIca {name}: a source's ratio {ratio}")
+            med = statistics.median(fit_ms)
+            row = {"knobs": knobs, "fit_ms": fit_ms, "fit_ms_median": med,
+                   "n_iter": m.n_iter_, "iters_per_s": m.n_iter_ / med * 1e3,
+                   "fill_ms": fills[-1], "k3_launches_per_fit": counts,
+                   "amari_distance": amari, "min_source_ratio": ratio,
+                   "whitened_buffer_cols":
+                       m.last_fit_stats_.extra["whitened_buffer_cols"]}
+            if name == "f64_full":
+                ic = ica_model(api, CUDA, whiten_solver="eigh",
+                               **knobs).fit(x)
+                row["incore_n_iter"] = ic.n_iter_
+                row["components_rel_vs_incore"] = rel_max(
+                    m.components_, ic.components_)
+                require(m.n_iter_ == ic.n_iter_,
+                        f"streamed n_iter {m.n_iter_} vs {ic.n_iter_}")
+                require(row["components_rel_vs_incore"] <= 1e-6,
+                        "streamed FastIca vs in-core components "
+                        f"{row['components_rel_vs_incore']}")
+            out[name] = row
+    finally:
+        pst._fill_pass = real_fill
+    del x64
+    torch.cuda.empty_cache()
+    return {"phase": "stream_fast_ica", "x": [NI, KI], "block_rows": 65536,
+            "fits": out}
+
+
 def k2_without_gate(k2):
     """A stand-in for ``k2.jacobi_svd_vmem`` without the JAX kernel's
     gate, under a block plan of the reach the kernel itself has (n_pad ≤
@@ -1490,8 +2016,10 @@ def phase_k3(ctx):
 PHASES = (phase_k1, phase_slice, phase_default, phase_pca_f64,
           phase_pca_f64_gram, phase_config1, phase_pca_f32,
           phase_pca_f32_wide, phase_randomized_f64, phase_gram_recovery_f64,
-          phase_fast_ica_config3, phase_fast_ica_card_vs_cpu, phase_k2_reach,
-          phase_k2, phase_k3)
+          phase_fast_ica_config3, phase_fast_ica_card_vs_cpu,
+          phase_stream_north_star, phase_stream_exact,
+          phase_stream_randomized_f64, phase_partial_fit,
+          phase_stream_fast_ica, phase_k2_reach, phase_k2, phase_k3)
 
 KERNELS = {
     "sketch_moments": ("sketch_moments.cu", "sketch_kernel.py:143"),
@@ -1561,6 +2089,15 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import petal_decomposition_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        if e.name != "petal_decomposition_tpu_torch":
+            raise
+        print("chip_smoke: the package petal_decomposition_tpu_torch is "
+              "not beside this script; run it from a checkout of the "
+              "repository", file=sys.stderr)
         return 2
     ctx = context()
     for run in PHASES:

@@ -16,8 +16,8 @@ from ..ops.linalg import mdot
 __all__ = [
     "default_device",
     "as_matrix",
+    "check_device",
     "reject_mesh",
-    "streamed_not_ported",
     "check_min_dims",
     "check_fitted",
     "real_dtype",
@@ -34,17 +34,23 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def check_device(device) -> None:
+    """Raise when ``device`` is a card and this machine has none, rather
+    than run on the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to fit on "
+            "the CPU"
+        )
+
+
 def as_matrix(x, device, complex_ok: bool = False) -> torch.Tensor:
     """Coerce input (numpy, tensor, nested lists) to a contiguous 2-D
     floating tensor on ``device``; integers and booleans become float64,
     as in the JAX package.  Complex input raises unless ``complex_ok``
     (the models whose fits take it).  A CUDA ``device`` on a machine
     without a card raises rather than running on the CPU."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device=\"cpu\" to fit on "
-            "the CPU"
-        )
+    check_device(device)
     if isinstance(x, torch.Tensor):
         t = x
     else:
@@ -70,14 +76,6 @@ def reject_mesh(mesh) -> None:
             "mesh fits are not ported to PyTorch yet (ROADMAP.md §1 "
             "item 8); fit on one device"
         )
-
-
-def streamed_not_ported(*_args, **_kwargs):
-    """The streamed fits and transforms are not ported yet."""
-    raise NotImplementedError(
-        "streamed fits and transforms are not ported to PyTorch yet "
-        "(ROADMAP.md §1 item 6)"
-    )
 
 
 def check_min_dims(x, n_components: int) -> None:

@@ -26,9 +26,11 @@ Where the JAX package runs the whole iteration as one on-device
 ``lax.while_loop``, this loop runs on the host: its stop test, ``(lim ≥
 tol) & (it < budget)``, reads ``lim`` once a step.
 
+``fit_batched`` and ``transform_batched`` stream row blocks in two
+passes (:mod:`.streaming`).
+
 Not ported: ``key=`` and ``with_key`` (a JAX key cannot cross over; the
-port seeds from ``seed``), device meshes (``ROADMAP.md`` §1 item 8) and
-``fit_batched`` / ``transform_batched`` (item 6).
+port seeds from ``seed``) and device meshes (``ROADMAP.md`` §1 item 8).
 """
 
 from __future__ import annotations
@@ -465,10 +467,36 @@ class FastIca:
             stats.n_iter = self._n_iter
         return self
 
-    # Not ported yet: each raises NotImplementedError.
-    fit_batched = transform_batched = staticmethod(
-        _common.streamed_not_ported
-    )
+    def fit_batched(self, data, *, block_rows: int | None = None) -> "FastIca":
+        """Out-of-core fit in two streamed passes: pass 1 accumulates the
+        d×d Gram and moments (→ the eigh whitening K), pass 2 streams
+        ``X₁ = K·(X − μ)ᵀ·√n`` into a k×n buffer on the device, and
+        ``ica_par`` runs on it as in core.  ``data`` must be re-iterable:
+        a 2-D array-like such as ``np.memmap``, a sequence of blocks, or
+        a zero-arg callable returning the stream; k×n must fit device
+        memory (checked).  Matches the in-core ``whiten_solver="eigh"``
+        fit of the same seed up to accumulation roundoff.  Returns
+        ``self``.
+
+        >>> import numpy as np
+        >>> rng = np.random.default_rng(0)
+        >>> x = rng.laplace(size=(600, 3)) @ rng.standard_normal((3, 3))
+        >>> m = FastIca(seed=42, device="cpu").fit_batched([x[:256], x[256:]])
+        >>> tuple(m.components().shape)
+        (3, 3)
+        """
+        from . import streaming
+
+        return streaming.stream_fit_fast_ica(self, data,
+                                             block_rows=block_rows)
+
+    def transform_batched(self, blocks, *, block_rows: int | None = None):
+        """Unmix a stream block by block; returns the stacked (n, k)
+        result as a CPU tensor."""
+        from . import streaming
+
+        return streaming.transform_batched(self, blocks,
+                                           block_rows=block_rows)
 
     @property
     def mixing_(self):

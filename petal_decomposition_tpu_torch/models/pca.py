@@ -7,11 +7,12 @@ through the hand-written Jacobi kernels (``ops/jacobi.py``): K3 for
 float64, directly or on the R factor of a tall Householder QR, and K2
 for float32 likewise; ``solver="gram"`` takes the covariance
 eigenproblem, whose float64 eigensolve is K3 as well.  Complex data
-goes through ``torch.linalg`` on the model's device.
+goes through ``torch.linalg`` on the model's device.  ``fit_batched``,
+``partial_fit`` and ``transform_batched`` stream row blocks
+(:mod:`.streaming`).
 
-Not ported yet: device meshes (``ROADMAP.md`` §1 item 8), the streamed
-``fit_batched`` / ``partial_fit`` / ``transform_batched`` (item 6) and
-the host-native offload (item 9, off by default in the JAX package).
+Not ported yet: device meshes (``ROADMAP.md`` §1 item 8) and the
+host-native offload (item 9, off by default in the JAX package).
 """
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ class Pca:
         self._singular_full = None
         self._total_variance = None  # real scalar
         self._n_samples = 0
+        self._stream = None  # partial_fit's accumulator
 
     @classmethod
     def new(cls, n_components: int) -> "Pca":
@@ -156,10 +158,42 @@ class Pca:
             y, self._components, self._means, self._centering,
         )
 
-    # Not ported yet: each raises NotImplementedError.
-    fit_batched = transform_batched = partial_fit = staticmethod(
-        _common.streamed_not_ported
-    )
+    def fit_batched(self, blocks, *, block_rows: int | None = None) -> "Pca":
+        """Out-of-core fit from a stream of row blocks (or one 2-D
+        array-like sliced on the host, e.g. an ``np.memmap``): one pass
+        accumulates the d×d Gram and moments on the device, then the
+        covariance eigenproblem gives the components.  Accuracy and sign
+        contract in :mod:`.streaming`.  Returns ``self``.
+
+        >>> import numpy as np
+        >>> x = np.arange(12.0).reshape(6, 2)
+        >>> m = Pca(1, device="cpu").fit_batched([x[:4], x[4:]], block_rows=4)
+        >>> bool(abs(float(m.singular_values_[0]) - 140 ** 0.5) < 1e-8)
+        True
+        """
+        from . import streaming
+
+        return streaming.stream_fit_exact(self, blocks, block_rows=block_rows)
+
+    def transform_batched(self, blocks, *, block_rows: int | None = None):
+        """Project a stream block by block; returns the stacked (n, k)
+        result as a CPU tensor."""
+        from . import streaming
+
+        return streaming.transform_batched(self, blocks,
+                                           block_rows=block_rows)
+
+    def partial_fit(self, x, *, block_rows: int | None = None) -> "Pca":
+        """Incremental out-of-core fit: accumulate ``x`` (a block, an
+        iterable of blocks, or a 2-D array-like) into the model's stream
+        and re-solve, so the model is fitted after every call (sklearn
+        ``IncrementalPCA`` semantics).  Any ``fit``/``fit_batched``
+        restarts the stream.  Returns ``self``."""
+        from . import streaming
+
+        streaming.partial_fit_step(self, x, block_rows=block_rows,
+                                   solve=streaming._solve_exact)
+        return self
 
     @staticmethod
     def _auto_prefers_gram(x) -> bool:
@@ -187,6 +221,7 @@ class Pca:
         """ref: pca.rs:195-231."""
         from ..parallel.distributed import pca_fit_gram
 
+        self._stream = None  # a full fit restarts any partial_fit stream
         k = self._n_components
         _common.check_min_dims(x, k)
         n, d = x.shape

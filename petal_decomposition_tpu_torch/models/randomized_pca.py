@@ -13,8 +13,8 @@ the default-constructor fit of a tall float32 matrix on CUDA therefore
 takes the zero-pass Gram-algebra recovery, which runs no hand-written
 kernel; ``range_finder("gram").gram_projection("data")`` takes the route
 through the fused sketch+moments kernel (K1) and the Jacobi SVD kernel
-(K2).  Streamed fits (``fit_batched``, ``partial_fit``,
-``transform_batched``) and device meshes are not ported yet.
+(K2).  ``fit_batched``, ``partial_fit`` and ``transform_batched`` stream
+row blocks (:mod:`.streaming`); device meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -140,6 +140,7 @@ class RandomizedPca:
         self._singular_full = None
         self._total_variance = None
         self._n_samples = 0
+        self._stream = None  # partial_fit's accumulator
 
     # Constructors mirroring the reference (pca.rs:342-381).
     @classmethod
@@ -218,6 +219,46 @@ class RandomizedPca:
             y, self._components, self._means, self._centering,
         )
 
+    def fit_batched(self, blocks,
+                    *, block_rows: int | None = None) -> "RandomizedPca":
+        """Out-of-core randomized fit from a stream of row blocks (or one
+        2-D array-like sliced on the host): one pass accumulates the d×d
+        Gram and moments, then the Gram range finder's subspace iteration
+        and the zero-pass recovery run on the accumulated operator.
+        Draws the next sub-stream of the generator, as ``fit`` does, so
+        at the same seed Ω is the in-core fit's.  Returns ``self``.
+
+        >>> import numpy as np
+        >>> x = np.random.default_rng(0).standard_normal((500, 8))
+        >>> m = RandomizedPca(2, seed=3, device="cpu").fit_batched(x)
+        >>> tuple(m.components_.shape)
+        (2, 8)
+        """
+        from . import streaming
+
+        return streaming.stream_fit_randomized(self, blocks,
+                                               block_rows=block_rows)
+
+    def transform_batched(self, blocks, *, block_rows: int | None = None):
+        """Project a stream block by block; returns the stacked (n, k)
+        result as a CPU tensor."""
+        from . import streaming
+
+        return streaming.transform_batched(self, blocks,
+                                           block_rows=block_rows)
+
+    def partial_fit(self, x,
+                    *, block_rows: int | None = None) -> "RandomizedPca":
+        """Incremental out-of-core randomized fit: accumulate ``x`` into
+        the model's stream and re-solve (each call draws the next
+        sub-stream of the generator for its sketch).  Any
+        ``fit``/``fit_batched`` restarts the stream.  Returns ``self``."""
+        from . import streaming
+
+        streaming.partial_fit_step(self, x, block_rows=block_rows,
+                                   solve=streaming._solve_randomized)
+        return self
+
     def _resolve_normalizer(self, x) -> str:
         """``"auto"``: LU→P·L on the CPU (the reference's normalizer),
         matmul-only CholeskyQR2 on the accelerator."""
@@ -228,6 +269,7 @@ class RandomizedPca:
     def _inner_fit(self, x):
         from ..parallel.distributed import randomized_pca_fit
 
+        self._stream = None  # a full fit restarts any partial_fit stream
         k = self._n_components
         _common.check_min_dims(x, k)
         n, d = x.shape

@@ -10,6 +10,7 @@ _MODULES = [
     "petal_decomposition_tpu_torch.models.fast_ica",
     "petal_decomposition_tpu_torch.models.pca",
     "petal_decomposition_tpu_torch.models.randomized_pca",
+    "petal_decomposition_tpu_torch.models.streaming",
     "petal_decomposition_tpu_torch.ops.centered",
     "petal_decomposition_tpu_torch.ops.gram_recovery",
     "petal_decomposition_tpu_torch.ops.linalg",

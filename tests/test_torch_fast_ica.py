@@ -466,10 +466,10 @@ def test_default_device_is_the_card(monkeypatch, make):
 def test_unported_surfaces_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         pt.FastIcaBuilder().mesh(object()).build()
-    m = pt.FastIca(seed=1, device="cpu")
-    for call in (m.fit_batched, m.transform_batched):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call([np.zeros((4, 2))])
+    # The streamed surfaces are ported (tests/test_torch_streaming_ica.py).
+    x, _ = _two_sources(50, 3, [[1.0, 0.2], [0.4, 1.0]])
+    m = pt.FastIca(seed=1, device="cpu").fit_batched([x])
+    assert tuple(m.transform_batched([x]).shape) == (50, 2)
 
 
 def test_state_from_a_fitted_jax_model():

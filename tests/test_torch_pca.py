@@ -286,10 +286,11 @@ def test_failed_refit_leaves_the_model_untouched(monkeypatch):
 def test_unported_surfaces_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         pt.PcaBuilder(2).mesh(object()).build()
+    # The streamed surfaces are ported (tests/test_torch_streaming.py).
     m = _port(2)
-    for call in (m.fit_batched, m.partial_fit, m.transform_batched):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call([GOLDEN])
+    m.fit_batched([GOLDEN])
+    m.partial_fit([GOLDEN])
+    assert tuple(m.transform_batched([GOLDEN]).shape) == (len(GOLDEN), 2)
     with pytest.raises(ValueError, match="solver"):
         _port(2, solver="qdwh")
     with pytest.raises(pt.InvalidInput):
