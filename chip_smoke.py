@@ -20,6 +20,13 @@ through the entry points a user calls:
 * ``RandomizedPca`` at BASELINE config 2 (100,000 × 1024 float64,
   k = 32, default knobs), whose SVD of Bᵀ is K3, and the same table
   through the zero-pass Gram recovery, whose two 42×42 eighs are K3;
+* the single-device surface: ``RandomizedPca(32)`` on complex data
+  (config 2's shape in complex128, the flagship's in complex64), which
+  runs no kernel; ``save``/``load`` on the card of four fitted models,
+  transforms and next fits bitwise; config 1 through the host C++ core,
+  through the tiny-fit offload and through K3, timed; the flagship data
+  route and config 1 inside ``nan_debugging()``, bitwise, and a NaN out
+  of each kernel raising with its wrapper's name;
 * ``FastIca`` at BASELINE config 3 (100,000 samples of 64 Laplace
   sources, float64 and float32) at the card's defaults and each
   alternative of its three autos: float64 whitens through K3's 64×64
@@ -1236,6 +1243,347 @@ def phase_fast_ica_card_vs_cpu(ctx):
     return {"phase": "fast_ica_card_vs_cpu", "checks": checks}
 
 
+# -- the single-device surface: complex RandomizedPca, save/load, the
+# host C++ core and nan_debugging ---------------------------------------
+
+# The complex fits: BASELINE config 2's shape in complex128, the
+# flagship's in complex64 (8 GiB).
+COMPLEX_FITS = {"complex128": (NR, DR, "complex128", SEED + 12),
+                "complex64": (N, D, "complex64", SEED + 13)}
+
+
+def complex_data(dev, n, d, dtype, seed):
+    """:func:`make_data`'s low rank plus noise with complex directions,
+    scores, noise and mean (each complex Gaussian draw has unit
+    variance, split evenly between its real and imaginary parts)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+
+    basis = torch.linalg.qr(draw(d, K)).Q.mH
+    scale = 3.0 * 0.9 ** torch.arange(K, device=dev, dtype=dtype.to_real())
+    x = draw(n, d)
+    x *= 0.05
+    x += (draw(n, K) * scale) @ basis
+    x += 0.1 * draw(d)
+    return x
+
+
+def complex_sigma_ref(x, k=K, rows: int = 1 << 16):
+    """Top-k σ of X − 1μᵀ from the eigenvalues of its complex128 Gram
+    XcᴴXc, formed by row chunks."""
+    import torch
+
+    c128 = torch.complex128
+    d = x.shape[1]
+    cs = torch.zeros(d, dtype=c128, device=x.device)
+    gram = torch.zeros((d, d), dtype=c128, device=x.device)
+    for i in range(0, x.shape[0], rows):
+        c = x[i:i + rows].to(c128)
+        cs += c.sum(0)
+        gram += c.mH @ c
+    mu = cs / x.shape[0]
+    gc = gram - x.shape[0] * torch.outer(mu.conj(), mu)
+    return torch.linalg.eigvalsh(gc).flip(0)[:k].clamp(min=0).sqrt()
+
+
+@phase
+def phase_randomized_complex(ctx):
+    """``RandomizedPca(32)`` at its defaults on complex data, on the
+    card: the JAX package's host autos (LU → P·L by its pivot rule,
+    direct finder, explicit centering, Householder QR, cuSOLVER's SVD of
+    B), so no kernel.  σ against the complex128 Gram at the randomized
+    band, fit_transform against fit then transform; the LU and QR
+    stages of one normalization timed on their panels."""
+    import torch
+
+    from petal_decomposition_tpu_torch.ops.linalg import lu_pl, mdot
+
+    kernels = {"sketch_moments": ctx.k1, "jacobi_svd": ctx.k2,
+               "jacobi_svd_f64": ctx.k3}
+    out = {"phase": "randomized_complex", "k": K,
+           "route": "host autos on the card: LU, direct, QR, torch.linalg"}
+    for label, (n, d, dtype, seed) in COMPLEX_FITS.items():
+        x = complex_data(ctx.dev, n, d, getattr(torch, dtype), seed)
+
+        def make():
+            return randomized_model(ctx.api, CUDA)
+
+        make().fit(x)  # warm-up
+        fit_ms, launches = [], {name: 0 for name in kernels}
+        for _ in range(3):
+            for mod in kernels.values():
+                mod.launches = 0
+            model = make().fit(x)
+            for name, mod in kernels.items():
+                launches[name] += mod.launches
+            fit_ms.append(model.last_fit_stats_.wall_time_s * 1e3)
+        require(not any(launches.values()),
+                f"a complex fit launched a kernel: {launches}")
+        s_ref = complex_sigma_ref(x)
+        sig = float(((model.singular_values_.double() - s_ref).abs()
+                     / s_ref).max())
+        require(sig <= 1e-4, f"{label} σ relative error {sig} > 1e-4")
+        z = model.transform(x)
+        require(tuple(z.shape) == (n, K) and bool(torch.isfinite(z).all()),
+                f"{label} transform is not finite (n, K)")
+        z_ft = make().fit_transform(x)
+        ft = rel_max(z_ft, z)
+        ft_fro = float((z_ft - z).norm() / z.norm())
+        del z_ft
+        require(ft <= 1e-4, f"{label} fit_transform vs transform {ft}")
+        omega = torch.randn(d, L, device=ctx.dev,
+                            dtype=x.dtype.to_real()).to(x.dtype)
+        y = mdot(x, omega)
+        yt = mdot(x.mH, lu_pl(y))
+        out[label] = {
+            "x": [n, d], "fit_ms": fit_ms,
+            "fit_ms_median": statistics.median(fit_ms),
+            "launches_per_3_fits": launches, "sigma_rel_err_vs_c128": sig,
+            "fit_transform_rel_err": ft, "fit_transform_fro_rel_err": ft_fro,
+            "stages_ms": {
+                "lu_pl_n_x_l": cuda_ms(lambda: lu_pl(y), 5),
+                "lu_pl_d_x_l": cuda_ms(lambda: lu_pl(yt), 5),
+                "qr_n_x_l": cuda_ms(lambda: torch.linalg.qr(y), 5),
+                "x_times_panel": cuda_ms(lambda: mdot(x, omega), 5),
+            },
+        }
+        del x, y, yt, z, model
+        torch.cuda.empty_cache()
+    return out
+
+
+@phase
+def phase_serialize(ctx):
+    """``save``/``load`` on the card of config 1's ``Pca``, config 2's
+    ``RandomizedPca``, a config-3 ``FastIca`` (float64) and the
+    complex128 ``RandomizedPca``: the loaded model transforms bitwise as
+    the saved one, the loaded ``RandomizedPca``'s and ``FastIca``'s next
+    fit is bitwise the original's next fit, and a load on the CPU
+    transforms within 1e-10."""
+    import torch
+
+    from petal_decomposition_tpu_torch.utils import serialize
+
+    api, k3 = ctx.api, ctx.k3
+    n, d, dtype, seed = COMPLEX_FITS["complex128"]
+    cases = {
+        "config1_pca": (lambda: api.PcaBuilder(64).device(CUDA).build(),
+                        config1_data, False),
+        "config2_randomized_pca": (lambda: randomized_model(api, CUDA),
+                                   randomized64_data, True),
+        "config3_fast_ica_f64": (lambda: ica_model(api, CUDA),
+                                 ica64_data, True),
+        "complex128_randomized_pca": (
+            lambda: randomized_model(api, CUDA),
+            lambda dev: complex_data(dev, n, d, torch.complex128, seed),
+            True),
+    }
+    report = {}
+    for name, (make, data, refit) in cases.items():
+        x = data(ctx.dev)
+        k3.launches = 0
+        model = make().fit(x)
+        launches = {"jacobi_svd_f64": k3.launches}
+        ctx.add_launches(launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = serialize.to_bytes(model)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded = serialize.from_bytes(blob, device=CUDA)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        z = model.transform(x)
+        require(torch.equal(loaded.transform(x), z),
+                f"{name}: the loaded model's transform is not bitwise")
+        on_cpu = serialize.from_bytes(blob, device="cpu")
+        cpu_err = rel_max(on_cpu.transform(x.cpu()), z.cpu())
+        require(cpu_err <= 1e-10, f"{name}: CPU load transform {cpu_err}")
+        entry = {"archive_bytes": len(blob), "save_ms": save_ms,
+                 "load_ms": load_ms, "cpu_load_transform_rel_err": cpu_err,
+                 "launches": launches}
+        if refit:
+            nxt, nxt_loaded = model.fit(x), loaded.fit(x)
+            require(torch.equal(nxt_loaded.components_, nxt.components_),
+                    f"{name}: the loaded model's next fit differs")
+            entry["next_fit_bitwise"] = True
+        report[name] = entry
+        del x, z, model, loaded, on_cpu
+        torch.cuda.empty_cache()
+    return {"phase": "serialize", "models": report}
+
+
+@contextlib.contextmanager
+def config_set(**fields):
+    """Set fields of the port's ``config`` for the block."""
+    from petal_decomposition_tpu_torch import config
+
+    old = {name: getattr(config, name) for name in fields}
+    for name, value in fields.items():
+        setattr(config, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(config, name, value)
+
+
+@phase
+def phase_native_offload(ctx):
+    """BASELINE config 1 (1000 × 64 float64) through the host C++ core
+    (``linalg_backend="native"``), through the tiny-fit offload
+    (``"auto"`` with ``host_offload_max_elements = 1 << 18``) and on the
+    card (direct K3): σ and σᵢ·componentsᵢ agree within 1e-10·σ₁; median
+    fit ms of 20 each, by the fit's own clock (host to host, the copies
+    of the host routes included)."""
+    import torch
+
+    from petal_decomposition_tpu_torch.utils import native
+
+    k3 = ctx.k3
+    x = config1_data(ctx.dev)
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    routes = {"native": {"linalg_backend": "native"},
+              "auto_offload": {"host_offload_max_elements": 1 << 18},
+              "card_k3": {}}
+    out, models = {}, {}
+    for route, fields in routes.items():
+        with config_set(**fields):
+            ctx.api.PcaBuilder(64).device(CUDA).build().fit(x)  # warm-up
+            fit_ms, launches = [], 0
+            for _ in range(20):
+                k3.launches = 0
+                m = ctx.api.PcaBuilder(64).device(CUDA).build().fit(x)
+                launches += k3.launches
+                fit_ms.append(m.last_fit_stats_.wall_time_s * 1e3)
+        models[route] = m
+        out[route] = {"fit_ms_median": statistics.median(fit_ms),
+                      "fit_ms_min": min(fit_ms), "fit_ms_max": max(fit_ms),
+                      "k3_launches_per_20_fits": launches}
+    require(out["native"]["k3_launches_per_20_fits"] == 0
+            and out["auto_offload"]["k3_launches_per_20_fits"] == 0,
+            "a host route launched K3")
+    require(out["card_k3"]["k3_launches_per_20_fits"] == 20,
+            "the card's route did not launch K3 once a fit")
+    ctx.add_launches({"jacobi_svd_f64": 20})
+    ref = models["card_k3"]
+    s1 = float(ref.singular_values_[0])
+    for route in ("native", "auto_offload"):
+        m = models[route]
+        require(m.components_.device == ref.components_.device,
+                f"{route}: the state is not on the model's device")
+        sig = float((m.singular_values_ - ref.singular_values_).abs().max())
+        comp = float(((m.components_ - ref.components_).abs()
+                      * ref.singular_values_[:, None]).max())
+        require(sig <= 1e-10 * s1 and comp <= 1e-10 * s1,
+                f"{route} vs K3: σ {sig}, σ·components {comp}")
+        out[route].update(sigma_abs_err_vs_k3=sig,
+                          sigma_weighted_components_err_vs_k3=comp)
+    return {"phase": "native_offload", "x": [1000, 64], "k": 64,
+            "native_build_s": build_s, "routes": out,
+            "host_over_card": out["native"]["fit_ms_median"]
+            / out["card_k3"]["fit_ms_median"]}
+
+
+def fpe_message(fn):
+    """The message of the ``FloatingPointError`` that ``fn()`` raises;
+    None if it returns."""
+    try:
+        fn()
+    except FloatingPointError as e:
+        return str(e)
+    return None
+
+
+def nan_panel(a):
+    """A copy of panel ``a`` holding one NaN, as the transpose view of a
+    contiguous tensor, so a Jacobi wrapper hands it to its kernel with
+    no copy the mode would check first."""
+    t = a.mT.contiguous()
+    t[1, 7] = float("nan")
+    return t.mT
+
+
+@phase
+def phase_nan_debugging(ctx):
+    """The flagship data-route fit (K1 + K2) and config 1 (K3) inside
+    ``nan_debugging()``: σ bitwise as without it, and the mode's
+    overhead (median fit ms of 3 each way).  Then one NaN planted in
+    config 1's X must raise ``FloatingPointError``, and a panel holding a
+    NaN handed to each kernel under the mode must raise naming that
+    kernel's wrapper."""
+    import torch
+
+    from petal_decomposition_tpu_torch.utils.debugging import nan_debugging
+
+    k1, k2, k3 = ctx.k1, ctx.k2, ctx.k3
+    fits = {
+        "flagship_data_route": (lambda: data_route_model(ctx.api, CUDA),
+                                make_data, {"sketch_moments": k1,
+                                            "jacobi_svd": k2}),
+        "config1": (lambda: ctx.api.PcaBuilder(64).device(CUDA).build(),
+                    config1_data, {"jacobi_svd_f64": k3}),
+    }
+    out = {"phase": "nan_debugging"}
+    for name, (make, data, kernels) in fits.items():
+        x = data(ctx.dev)
+        make().fit(x)  # warm-up
+        plain = [make().fit(x) for _ in range(3)]
+        with nan_debugging():
+            checked = []
+            for _ in range(3):
+                for mod in kernels.values():
+                    mod.launches = 0
+                checked.append(make().fit(x))
+                counts = {key: mod.launches for key, mod in kernels.items()}
+                require(all(counts.values()),
+                        f"{name} under the mode launched {counts}")
+                ctx.add_launches(counts)
+        for a, b in zip(plain, checked):
+            require(torch.equal(a.singular_values_, b.singular_values_),
+                    f"{name}: σ under nan_debugging is not bitwise")
+        ms = [statistics.median(m.last_fit_stats_.wall_time_s * 1e3
+                                for m in ms_) for ms_ in (plain, checked)]
+        out[name] = {"fit_ms_median": ms[0],
+                     "fit_ms_median_under_mode": ms[1],
+                     "overhead": ms[1] / ms[0], "launches": counts}
+        del x, plain, checked
+        torch.cuda.empty_cache()
+    x = config1_data(ctx.dev)
+    x[17, 5] = float("nan")
+    with nan_debugging():
+        msg = fpe_message(
+            lambda: ctx.api.PcaBuilder(64).device(CUDA).build().fit(x))
+    require(msg is not None, "a NaN in config 1's X did not raise")
+    out["planted_nan_in_x"] = msg
+    x = config1_data(ctx.dev)
+    panel = x - x.mean(0)
+    w = torch.ones(x.shape[1], 16, device=ctx.dev, dtype=torch.float32)
+    x32 = make_data(ctx.dev, 8192, 64, torch.float32, SEED + 14)
+    x32[7, 1] = float("nan")
+    p32, p64 = nan_panel(panel.float()), nan_panel(panel)
+    kernel_cases = {
+        "fused_sketch_moments (K1)": lambda: k1.fused_sketch_moments(x32, w),
+        "jacobi_svd_vmem (K2)": lambda: k2.jacobi_svd_vmem(p32),
+        "jacobi_svd_vmem_f64 (K3)": lambda: k3.jacobi_svd_vmem_f64(p64),
+    }
+    out["kernels"] = {}
+    for wrapper, call in kernel_cases.items():
+        with nan_debugging():
+            msg = fpe_message(call)
+        require(msg is not None and wrapper in msg,
+                f"NaN out of {wrapper} raised {msg!r}")
+        out["kernels"][wrapper] = msg
+    return out
+
+
 # -- streamed fits: the north-star stream, configs 2 and 3 streamed ------
 
 # benchmarks/north_star.py's stream: 16 host blocks of 65536 × 4096 float32.
@@ -2016,7 +2364,8 @@ def phase_k3(ctx):
 PHASES = (phase_k1, phase_slice, phase_default, phase_pca_f64,
           phase_pca_f64_gram, phase_config1, phase_pca_f32,
           phase_pca_f32_wide, phase_randomized_f64, phase_gram_recovery_f64,
-          phase_fast_ica_config3, phase_fast_ica_card_vs_cpu,
+          phase_randomized_complex, phase_serialize, phase_native_offload,
+          phase_nan_debugging, phase_fast_ica_config3, phase_fast_ica_card_vs_cpu,
           phase_stream_north_star, phase_stream_exact,
           phase_stream_randomized_f64, phase_partial_fit,
           phase_stream_fast_ica, phase_k2_reach, phase_k2, phase_k3)

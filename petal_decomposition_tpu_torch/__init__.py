@@ -3,12 +3,15 @@
 The counterpart of ``petal_decomposition_tpu`` for NVIDIA Hopper: the
 same algorithms, API, error taxonomy and tolerances, in plain PyTorch
 around kernels written by hand for the card.  It imports ``torch`` and
-never ``jax``.  Ported so far: the in-core exact and randomized PCA and
-the in-core FastICA.
+never ``jax``.  Ported: exact PCA, randomized PCA and FastICA, real and
+complex, in core and streamed from host blocks (real); ``save``/``load``
+in the JAX package's archive; the ``"native"`` host backend and the
+tiny-fit host offload; ``utils.debugging`` (``nan_debugging``,
+``check_finite``).  Not ported yet: device meshes and multi-host fits.
 
 >>> from petal_decomposition_tpu_torch import (
 ...     Pca, PcaBuilder, RandomizedPca, RandomizedPcaBuilder,
-...     FastIca, FastIcaBuilder, DecompositionError,
+...     FastIca, FastIcaBuilder, DecompositionError, save, load,
 ... )
 """
 
@@ -17,6 +20,7 @@ from .errors import DecompositionError, InvalidInput, LinalgError
 from .models.fast_ica import FastIca, FastIcaBuilder
 from .models.pca import Pca, PcaBuilder
 from .models.randomized_pca import RandomizedPca, RandomizedPcaBuilder
+from .utils.serialize import load, save
 
 __all__ = [
     "Pca",
@@ -29,6 +33,8 @@ __all__ = [
     "InvalidInput",
     "LinalgError",
     "config",
+    "save",
+    "load",
 ]
 
 __version__ = "0.5.0"

@@ -11,11 +11,21 @@ the fields the PCA fits read:
     - ``"jacobi"`` — always use the in-house Jacobi SVD.
     - ``"torch"``  — always use ``torch.linalg`` (the counterpart of the
       JAX package's ``"xla"``).
+    - ``"native"`` — the host C++ core (``native/petal_native.cpp``,
+      :mod:`.utils.native`) for real SVDs and eighs and the exact
+      ``Pca`` fit; the library is built at first use, and a failed build
+      raises.
 * ``matmul_precision``: the grade of every float32 matmul in the compute
   path.  Only ``"highest"`` (IEEE float32, TF32 off) exists so far;
   choosing TF32 or bf16 grades on Hopper is settled by measurement.
 * ``jacobi_max_sweeps`` / ``check_convergence``: the Jacobi sweep budget
   and whether an unconverged certificate raises ``LinalgError``.
+* ``host_offload_max_elements``: under ``"auto"``, real factorizations
+  of tensors on the card with at most this many elements run on the
+  host C++ core instead (the fit is then bound by launch latency, not
+  arithmetic).  0, the JAX package's default, turns it off; whether it
+  pays on a card is measured by ``chip_smoke.py`` (phase
+  ``native_offload``).
 """
 
 from __future__ import annotations
@@ -28,15 +38,16 @@ __all__ = ["config", "Config"]
 
 @dataclass
 class Config:
-    linalg_backend: str = "auto"  # "auto" | "jacobi" | "torch"
+    linalg_backend: str = "auto"  # "auto" | "jacobi" | "torch" | "native"
     matmul_precision: str = "highest"
     # Max Jacobi sweeps before declaring non-convergence (LinalgError
     # analogue of LAPACK info != 0; ref: linalg.rs:84).
     jacobi_max_sweeps: int = 30
     check_convergence: bool = True
+    host_offload_max_elements: int = 0
 
     def validate(self) -> None:
-        if self.linalg_backend not in ("auto", "jacobi", "torch"):
+        if self.linalg_backend not in ("auto", "jacobi", "torch", "native"):
             raise ValueError(f"unknown linalg backend: {self.linalg_backend}")
         if self.matmul_precision != "highest":
             raise ValueError(

@@ -625,7 +625,7 @@ class FastIca:
         w, n_iter = ica_par(xt, self._tol, self._max_iter, w_init,
                             **self._resolved(x))
         check_decorrelation(w)
-        self._components = w
+        self._components = w.contiguous()  # as Pca's
         self._means = torch.zeros((d,), dtype=_common.real_dtype(x.dtype),
                                   device=x.device)
         self._n_iter = n_iter

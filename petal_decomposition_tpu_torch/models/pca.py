@@ -7,12 +7,14 @@ through the hand-written Jacobi kernels (``ops/jacobi.py``): K3 for
 float64, directly or on the R factor of a tall Householder QR, and K2
 for float32 likewise; ``solver="gram"`` takes the covariance
 eigenproblem, whose float64 eigensolve is K3 as well.  Complex data
-goes through ``torch.linalg`` on the model's device.  ``fit_batched``,
+goes through ``torch.linalg`` on the model's device.  Under the
+``"native"`` backend, and under ``"auto"`` for a table on the card of
+at most ``config.host_offload_max_elements`` elements, the exact fit
+runs on the host C++ core (:func:`_fit_native`).  ``fit_batched``,
 ``partial_fit`` and ``transform_batched`` stream row blocks
 (:mod:`.streaming`).
 
-Not ported yet: device meshes (``ROADMAP.md`` §1 item 8) and the
-host-native offload (item 9, off by default in the JAX package).
+Not ported yet: device meshes (``ROADMAP.md`` §1 item 8).
 """
 
 from __future__ import annotations
@@ -41,6 +43,38 @@ def _fit_exact(x, *, centering: bool):
     u, sigma, vt, off = svd_jit_cert(xc)
     u, vt = svd_flip(u, vt)
     return u, sigma, vt, means, sigma @ sigma, off
+
+
+def _fit_native(x, *, centering: bool):
+    """The exact fit on the host C++ core (JAX ``models/pca.py:313-340``):
+    one copy of ``x`` to the host, centering and the SVD there in
+    float64, ``svd_flip`` on the host, the results back on ``x``'s
+    device and dtype: ``(u, sigma, vt, means, total_variance)``."""
+    import numpy as np
+
+    from ..utils import native
+
+    xh = x.cpu().numpy()
+    if centering:
+        means_h = xh.mean(axis=0, dtype=np.float64)
+        xc = xh - means_h
+    else:
+        means_h = np.zeros((xh.shape[1],), np.float64)
+        xc = xh
+    u_h, sigma_h, vt_h = _linalg.native_call(native.jacobi_svd, xc)
+    # svd_flip (reference convention, pca.rs:815-850).
+    idx = np.argmax(np.abs(u_h), axis=0)
+    piv = u_h[idx, np.arange(u_h.shape[1])]
+    signs = np.where(piv < 0, -1.0, 1.0)
+    u_h = u_h * signs[None, :]
+    vt_h = vt_h * signs[:, None]
+
+    def back(a):
+        return torch.from_numpy(a).to(x.device, x.dtype)
+
+    total_var = torch.tensor(float(sigma_h @ sigma_h), dtype=x.dtype,
+                             device=x.device)
+    return back(u_h), back(sigma_h), back(vt_h), back(means_h), total_var
 
 
 class Pca:
@@ -246,6 +280,10 @@ class Pca:
             _linalg.check_certificate(
                 st["off"], sigma.dtype, d, "eigendecomposition"
             )
+        elif _linalg._use_native(x.dtype, x.shape, x.device):
+            u, sigma, vt, means, total_var = _fit_native(
+                x, centering=self._centering
+            )
         else:
             u, sigma, vt, means, total_var, off = _fit_exact(
                 x, centering=self._centering
@@ -254,7 +292,9 @@ class Pca:
                 off, sigma.dtype, max(n, d), "singular value decomposition"
             )
         self._total_variance = total_var
-        self._components = vt[:k, :]
+        # Contiguous, as a loaded model's are: transform then takes the
+        # same GEMM path on a saved and on a loaded model.
+        self._components = vt[:k, :].contiguous()
         self._n_samples = n
         self._means = means
         self._singular = sigma[:k]

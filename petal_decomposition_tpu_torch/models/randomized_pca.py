@@ -7,14 +7,18 @@ power iterations (pca.rs:680), LU → P·L normalization between them on
 the CPU (pca.rs:709-713), and total variance as the squared Frobenius
 norm of the centered data (pca.rs:533), not Σσ².
 
-Every tensor of a model lives on its ``device``.  On CUDA the autos
-mirror the JAX package's accelerator autos, on the CPU its CPU autos:
-the default-constructor fit of a tall float32 matrix on CUDA therefore
-takes the zero-pass Gram-algebra recovery, which runs no hand-written
-kernel; ``range_finder("gram").gram_projection("data")`` takes the route
-through the fused sketch+moments kernel (K1) and the Jacobi SVD kernel
-(K2).  ``fit_batched``, ``partial_fit`` and ``transform_batched`` stream
-row blocks (:mod:`.streaming`); device meshes are not ported yet.
+Every tensor of a model lives on its ``device``, complex ones too.  On
+CUDA the autos mirror the JAX package's accelerator autos, on the CPU
+its CPU autos: the default-constructor fit of a tall float32 matrix on
+CUDA therefore takes the zero-pass Gram-algebra recovery, which runs no
+hand-written kernel; ``range_finder("gram").gram_projection("data")``
+takes the route through the fused sketch+moments kernel (K1) and the
+Jacobi SVD kernel (K2).  A complex fit takes the CPU autos on either
+device, as the JAX package's host-redirected complex fit does (LU → P·L
+normalizer, direct finder, explicit centering, Householder QR, the SVD
+of B by ``torch.linalg``), and so runs no kernel.  ``fit_batched``,
+``partial_fit`` and ``transform_batched`` stream real row blocks
+(:mod:`.streaming`); device meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ def randomized_range_finder(x, size: int, n_iter: int, gen: torch.Generator,
         return m
 
     for _ in range(n_iter):
-        q = mdot(x.mT, norm(q))
+        q = mdot(x.mH, norm(q))
         q = mdot(x, norm(q))
     return qr(q)
 
@@ -72,7 +76,7 @@ def randomized_svd(x, n_components: int, gen: torch.Generator, *,
         x, n_components + n_oversamples, n_power_iters, gen,
         normalizer=power_iteration_normalizer,
     )
-    u_b, sigma, vt = svddc(mdot(q.mT, x))  # ref: pca.rs:681-682
+    u_b, sigma, vt = svddc(mdot(q.mH, x))  # ref: pca.rs:681-682
     u, vt = svd_flip(mdot(q, u_b), vt)  # ref: pca.rs:683-684
     return u, sigma, vt
 
@@ -193,21 +197,21 @@ class RandomizedPca:
     def fit(self, x) -> "RandomizedPca":
         from ..utils.profiling import record_fit
 
-        x = _common.as_matrix(x, self._device)
+        x = _common.as_matrix(x, self._device, complex_ok=True)
         with record_fit(self, x.shape[0], x.shape[1], self._device):
             self._inner_fit(x)
         return self
 
     def transform(self, x):
         return _common.transform(
-            _common.as_matrix(x, self._device), self._components,
-            self._means, self._centering,
+            _common.as_matrix(x, self._device, complex_ok=True),
+            self._components, self._means, self._centering,
         )
 
     def fit_transform(self, x):
         from ..utils.profiling import record_fit
 
-        x = _common.as_matrix(x, self._device)
+        x = _common.as_matrix(x, self._device, complex_ok=True)
         with record_fit(self, x.shape[0], x.shape[1], self._device):
             u = self._inner_fit(x)
         return _common.transform_with_u(
@@ -259,12 +263,19 @@ class RandomizedPca:
                                    solve=streaming._solve_randomized)
         return self
 
+    @staticmethod
+    def _host_autos(x) -> bool:
+        """Whether the autos resolve as on the CPU: CPU tensors, and
+        complex ones on any device (the JAX package fits complex data on
+        the host, ``models/randomized_pca.py:283-296``)."""
+        return x.device.type == "cpu" or x.is_complex()
+
     def _resolve_normalizer(self, x) -> str:
-        """``"auto"``: LU→P·L on the CPU (the reference's normalizer),
-        matmul-only CholeskyQR2 on the accelerator."""
+        """``"auto"``: LU→P·L under the CPU autos (the reference's
+        normalizer), matmul-only CholeskyQR2 on the accelerator."""
         if self._normalizer != "auto":
             return self._normalizer
-        return "lu" if x.device.type == "cpu" else "cholqr2"
+        return "lu" if self._host_autos(x) else "cholqr2"
 
     def _inner_fit(self, x):
         from ..parallel.distributed import randomized_pca_fit
@@ -289,7 +300,7 @@ class RandomizedPca:
         # equivalent route: fused rank-1 centering and matmul-only
         # CholeskyQR2 final orthonormalization.  Small fits and CPU fits
         # keep the reference-parity rounding.
-        accel = x.device.type != "cpu"
+        accel = not self._host_autos(x)
         accel_fast = accel and n * d >= (1 << 22)
         final_orth = "cholqr2" if accel_fast else "qr"
         if not accel_fast and accel and x.dtype == torch.float64:
@@ -326,7 +337,7 @@ class RandomizedPca:
         )
         # Frobenius² of the centered data, NOT σ·σ (ref: pca.rs:533).
         self._total_variance = st["total_variance"]
-        self._components = vt[:k, :]
+        self._components = vt[:k, :].contiguous()  # as Pca's
         self._n_samples = n
         self._means = st["means"]
         self._singular = sigma[:k]

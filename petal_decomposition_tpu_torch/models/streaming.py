@@ -765,7 +765,7 @@ def _solve_randomized(model, m: StreamMoments) -> None:
 
 
 def _install_state(model, m: StreamMoments, sigma, vt, k: int) -> None:
-    model._components = vt[:k, :]
+    model._components = vt[:k, :].contiguous()  # as Pca's
     model._means = m.means
     model._singular = sigma[:k]
     model._singular_full = sigma
@@ -1058,7 +1058,7 @@ def _stream_fit_no_whiten(model, factory, block_rows: int, t0, fi):
     sub = rng_util.split(model._gen)
     w_init = rng_util.normal(sub, (d, d), tdtype, device)
     w, n_iter = _ica_iterate(model, buf, w_init, fi)
-    model._components = w
+    model._components = w.contiguous()  # as Pca's
     model._means = torch.zeros((d,), dtype=tdtype, device=device)
     model._n_iter = n_iter
     _record_stats(model, t0, n, d, n_blocks).n_iter = n_iter

@@ -5,10 +5,12 @@ its padded-row masks).
 The mean is a rank-1 correction that fuses into each matmul:
 
     (X − 1μᵀ)·Ω   = X·Ω − 1·(μᵀΩ)
-    (X − 1μᵀ)ᵀ·Q  = XᵀQ − μ·(1ᵀQ)
+    (X − 1μᵀ)ᴴ·Q  = XᴴQ − μ̄·(1ᵀQ)
     ‖X − 1μᵀ‖²_F  = ‖X‖²_F − n·‖μ‖²
 
-so the data matrix is read once per contraction and never copied.  (The
+so the data matrix is read once per contraction and never copied.
+Complex data takes the conjugate transposes and squared moduli; for
+real data they are the plain transposes and squares.  (The
 centered Gram ``XᵀX − n·μμᵀ`` is formed, with its own guard, in
 ``parallel/distributed.py``.)
 """
@@ -24,6 +26,7 @@ __all__ = [
     "centered_rmatmul",
     "centered_sqnorm_guarded",
     "guarded_sqnorm_from",
+    "abs2",
 ]
 
 
@@ -41,8 +44,14 @@ def centered_matmul(x, m, means):
 
 
 def centered_rmatmul(x, q, means):
-    """``(X − 1μᵀ)ᵀ·Q``."""
-    return mdot(x.mT, q) - torch.outer(means, q.sum(0))
+    """``(X − 1μᵀ)ᴴ·Q``."""
+    return mdot(x.mH, q) - torch.outer(means.conj(), q.sum(0))
+
+
+def abs2(t):
+    """``|t|²`` elementwise, real: ``t·t`` for real ``t`` (bitwise the
+    plain square)."""
+    return t.abs() ** 2 if t.is_complex() else t * t
 
 
 # Mean-domination guard for the analytic total variance: subtracting
@@ -59,16 +68,15 @@ def guarded_sqnorm_from(sq, means, n: int, x):
     """Total variance from a precomputed ``sq = ‖X‖²_F``: the analytic
     subtraction when safe, an explicit centered pass past the
     mean-domination threshold (one host read of the ratio decides)."""
-    msq = n * (means * means).sum()
+    msq = n * abs2(means).sum()
     tv = sq - msq
-    rmax = _SQNORM_GUARD_RMAX[means.dtype]
+    rmax = _SQNORM_GUARD_RMAX[tv.dtype]
     r = msq / torch.clamp(tv, min=1e-30)
     if float(r) > rmax:
-        xc = x - means
-        return (xc * xc).sum()
+        return abs2(x - means).sum()
     return tv
 
 
 def centered_sqnorm_guarded(x, means, n: int):
     """``‖X − 1μᵀ‖²_F`` with the mean-domination guard."""
-    return guarded_sqnorm_from((x * x).sum(), means, n, x)
+    return guarded_sqnorm_from(abs2(x).sum(), means, n, x)

@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from ...utils import debugging
 from . import _build, jacobi_block
 from .jacobi_block import MAX_CTAS, MAX_THREADS, MAX_W2, SMEM_BUDGET, _warps
 from .jacobi_kernels import (
@@ -143,4 +144,5 @@ def jacobi_svd_vmem_f64(a: torch.Tensor, *, max_sweeps: int = 30):
                               (w, p_count, r_count, mr), thr, EPS,
                               _tol(m, n))
     launches += 1
+    debugging.check_kernel_outputs("jacobi_svd_vmem_f64 (K3)", *out)
     return out

@@ -28,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from ...utils import debugging
 from . import _build, jacobi_block
 from .jacobi_block import MAX_CTAS, MAX_THREADS, MAX_W2, SMEM_BUDGET, _warps
 
@@ -296,4 +297,5 @@ def jacobi_svd_vmem(a: torch.Tensor, *, max_sweeps: int = 30):
                               (w, p_count, r_count, mr), thr, EPS,
                               _tol(m, n))
     launches += 1
+    debugging.check_kernel_outputs("jacobi_svd_vmem (K2)", *out)
     return out

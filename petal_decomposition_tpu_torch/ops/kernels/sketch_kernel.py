@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from ...utils import debugging
 from . import _build
 
 __all__ = ["fused_sketch_moments", "supports", "build", "launches"]
@@ -129,4 +130,6 @@ def fused_sketch_moments(x: torch.Tensor, w: torch.Tensor):
         )
     _build.check(lib, status, "sketch_moments kernel launch")
     launches += 1
+    debugging.check_kernel_outputs("fused_sketch_moments (K1)", y, colsum,
+                                   sqnorm)
     return y, colsum, sqnorm[0]

@@ -9,7 +9,10 @@ The same surface dispatches between two interchangeable routes:
   JAX package's ``_jacobi_svd_core`` off the card;
 * ``torch.linalg`` (LAPACK on the CPU, cuSOLVER on CUDA) — the
   counterpart of the JAX package's XLA built-ins, and the route of
-  every complex factorization (the kernels are real-only).
+  every complex factorization (the kernels are real-only);
+* the host C++ core (:mod:`..utils.native`) under the ``"native"``
+  backend, and under ``"auto"`` for tensors on the card of at most
+  ``config.host_offload_max_elements`` elements (:func:`_use_native`).
 
 A tensor's ``device.type`` takes the place of the JAX package's
 ``effective_platform()``: ``"cuda"`` is the accelerator, ``"cpu"`` the
@@ -20,6 +23,7 @@ CPU.  Every float32 matmul runs in IEEE float32 (TF32 off): see
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -31,6 +35,8 @@ from .kernels import jacobi_f64_kernel
 __all__ = [
     "svd",
     "svddc",
+    "eigh",
+    "native_call",
     "svd_jit_cert",
     "eigh_psd_jit_cert",
     "eigh_psd_jit",
@@ -139,7 +145,7 @@ def eigh_psd_jit_cert(a: torch.Tensor):
     """
     n = a.shape[0]
     if (
-        config.linalg_backend in ("auto", "jacobi")
+        config.linalg_backend in ("auto", "jacobi", "native")
         and a.is_cuda
         and jacobi_f64_kernel.supports(n, n, a.dtype)
     ):
@@ -186,6 +192,50 @@ def svd_jit_cert(a: torch.Tensor):
     return u, s, vt, torch.zeros((), dtype=s.dtype, device=s.device)
 
 
+def native_call(fn, a):
+    """Run the native factorization ``fn`` of :mod:`..utils.native` on
+    ``a`` at ``config.jacobi_max_sweeps``, raising its non-convergence
+    as ``LinalgError`` (the LAPACK ``info != 0`` analogue,
+    linalg.rs:84), as every backend does."""
+    from ..utils.native import NativeError
+
+    try:
+        return fn(a, max_sweeps=config.jacobi_max_sweeps)
+    except NativeError as e:
+        raise LinalgError(str(e)) from None
+
+
+def _use_native(dtype: torch.dtype, shape, device) -> bool:
+    """Whether a factorization of a ``shape`` tensor of ``dtype`` on
+    ``device`` runs on the host C++ core: never for complex (the core is
+    real); always under ``"native"``; under ``"auto"`` for a tensor off
+    the CPU with at most ``config.host_offload_max_elements`` elements
+    (tiny problems, bound by launch latency).  Where it does, the
+    library is loaded here, and a failed build raises ``NativeError``
+    rather than run the factorization on the card (the JAX package
+    returns False there)."""
+    if dtype.is_complex:
+        return False
+    backend = config.linalg_backend
+    offload = (
+        backend == "auto"
+        and config.host_offload_max_elements > 0
+        and math.prod(shape) <= config.host_offload_max_elements
+        and torch.device(device).type != "cpu"
+    )
+    if backend != "native" and not offload:
+        return False
+    from ..utils import native
+
+    native.load()
+    return True
+
+
+def _from_host(arr, like: torch.Tensor) -> torch.Tensor:
+    """A host float64 result back on ``like``'s device and dtype."""
+    return torch.from_numpy(arr).to(like.device, like.dtype)
+
+
 def svd(a: torch.Tensor, compute_vt: bool = True):
     """Thin SVD ``a = U diag(s) Vᵀ`` (reference ``svd``/gesvd,
     linalg.rs:70-91); raises ``LinalgError`` on non-convergence.
@@ -198,6 +248,12 @@ def svd(a: torch.Tensor, compute_vt: bool = True):
     >>> bool(((u * s) @ vt - a).abs().max() < 1e-10)
     True
     """
+    if _use_native(a.dtype, a.shape, a.device):
+        from ..utils import native
+
+        u, s, vt = native_call(native.jacobi_svd, a.detach().cpu().numpy())
+        vt = _from_host(vt, a) if compute_vt else None
+        return _from_host(u, a), _from_host(s, a), vt
     if _use_jacobi(a.dtype, a.device):
         u, s, vt, off, _ = jacobi_svd(a)
         check_certificate(
@@ -212,6 +268,26 @@ def svddc(a: torch.Tensor):
     """Economy SVD of a small projected matrix (reference ``svddc``/gesdd,
     linalg.rs:101-122): :func:`svd` that always returns vt."""
     return svd(a, compute_vt=True)
+
+
+def eigh(a: torch.Tensor):
+    """Hermitian eigendecomposition ``(w ascending, v)`` — the LAPACK
+    ``?syev``/``?heev`` convention (reference linalg.rs:39-60): the host
+    C++ core where :func:`_use_native` says so, else ``torch.linalg.eigh``
+    (LAPACK, cuSOLVER; the kernels' one-sided Jacobi is PSD-only, see
+    :func:`eigh_psd_jit_cert`).
+
+    >>> w, v = eigh(torch.tensor([[2.0, 1.0], [1.0, 2.0]],
+    ...                          dtype=torch.float64))
+    >>> [round(float(t), 10) for t in w]
+    [1.0, 3.0]
+    """
+    if _use_native(a.dtype, a.shape, a.device):
+        from ..utils import native
+
+        w, v = native_call(native.jacobi_eigh, a.detach().cpu().numpy())
+        return _from_host(w, a), _from_host(v, a)
+    return torch.linalg.eigh(a)
 
 
 def qr(a: torch.Tensor) -> torch.Tensor:
@@ -235,7 +311,7 @@ def cholesky_qr2(a: torch.Tensor) -> torch.Tensor:
         k = g.shape[0]
         eye = torch.eye(k, dtype=g.dtype, device=g.device)
         eps = float(torch.finfo(g.dtype).eps)
-        trace = torch.diagonal(g).sum()
+        trace = torch.diagonal(g).real.sum()
         # Tiny diagonal lift for exactly rank-deficient panels, floored
         # so it cannot underflow to 0 on an all-zero panel.
         lift = torch.clamp(eps * trace / k, min=1e-30)
@@ -256,18 +332,52 @@ def cholesky_qr2(a: torch.Tensor) -> torch.Tensor:
     return one_round(one_round(a))
 
 
+def _lu_pl_elimination(a: torch.Tensor) -> torch.Tensor:
+    """P·L by the JAX package's own elimination (``_lu_pl_core``): at
+    step j swap in the row of largest modulus at or below j (the first
+    of equals), store the multipliers, update the trailing columns.  For
+    complex panels, where ``getrf`` pivots by |Re| + |Im| (LAPACK's
+    ``izamax``) and so takes other rows, other P·L and other SVD phases
+    downstream.  No host synchronization: the pivot stays on the
+    device."""
+    m, n = a.shape
+    k = min(m, n)
+    a = a.clone()
+    perm = torch.arange(m, device=a.device)
+    for j in range(k):
+        piv = torch.argmax(a[j:, j].abs()) + j
+        rows = torch.stack((perm.new_full((), j), piv))
+        swapped = rows.flip(0)
+        a[rows] = a[swapped]
+        perm[rows] = perm[swapped]
+        pivot = a[j, j]
+        factors = a[j + 1:, j] / torch.where(pivot == 0, 1, pivot)
+        a[j + 1:, j + 1:].addr_(factors, a[j, j + 1:], alpha=-1)
+        a[j + 1:, j] = factors
+    lower = torch.tril(a[:, :k], diagonal=-1) + torch.eye(
+        m, k, dtype=a.dtype, device=a.device
+    )
+    pl = torch.empty_like(lower)
+    pl[perm] = lower
+    return pl
+
+
 def lu_pl(a: torch.Tensor) -> torch.Tensor:
     """Partial-pivot LU, returning the ``P·L`` factor (m × min(m, n)) —
     ``lair``'s ``into_pl`` as the Halko power-iteration normalizer uses
     it (ref: pca.rs:709-713).  The JAX package hand-rolls the
-    elimination because XLA's LU is float32-only on a TPU; here LAPACK's
-    (or cuSOLVER's) ``getrf`` does it.
+    elimination because XLA's LU is float32-only on a TPU; here a real
+    panel goes to LAPACK's (or cuSOLVER's) ``getrf``, whose pivot rule
+    is the same for real entries, and a complex panel to
+    :func:`_lu_pl_elimination`, the JAX package's pivot rule.
 
     >>> g = torch.Generator().manual_seed(3)
     >>> pl = lu_pl(torch.randn(30, 4, generator=g, dtype=torch.float64))
     >>> tuple(pl.shape), bool(pl.abs().max() <= 1.0 + 1e-12)
     ((30, 4), True)
     """
+    if a.is_complex():
+        return _lu_pl_elimination(a)
     m, n = a.shape
     k = min(m, n)
     # ``_ex``: an exactly singular panel (a zero pivot column) is a valid

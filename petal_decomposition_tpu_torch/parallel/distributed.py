@@ -24,6 +24,7 @@ import torch
 
 from ..ops.centered import (
     _SQNORM_GUARD_RMAX,
+    abs2,
     centered_matmul,
     centered_rmatmul,
     centered_sqnorm_guarded,
@@ -76,9 +77,9 @@ def _contractions(x, centering: bool, fuse_centering: bool):
     return (
         means,
         lambda m: mdot(xc, m),
-        lambda q: mdot(xc.mT, q),
+        lambda q: mdot(xc.mH, q),
         lambda: mdot(xc.mH, xc),
-        lambda: (xc * xc).sum(),
+        lambda: abs2(xc).sum(),
     )
 
 
@@ -128,16 +129,20 @@ def pca_fit_gram(x, *, centering: bool = True):
 
 
 def _resolve_range_finder(range_finder: str, n: int, d: int, l: int,
-                          device_type: str, *, full_f64: bool = False) -> str:
+                          device_type: str, *, full_f64: bool = False,
+                          is_complex: bool = False) -> str:
     """``"auto"`` picks the Gram finder on the accelerator when the
     sketch is much narrower than the data (l ≤ d/4) and the data is tall
-    (n ≥ 4d and ≥ 32k rows); the CPU and full-float64 fits stay direct —
-    the JAX package's accelerator and CPU autos, unchanged."""
+    (n ≥ 4d and ≥ 32k rows); the CPU, full-float64 and complex fits stay
+    direct — the JAX package's accelerator and CPU autos, unchanged.  The
+    Gram finder is real-only, as in the JAX package."""
     if range_finder not in ("auto", "direct", "gram"):
         raise ValueError(f"unknown range finder {range_finder!r}")
     if range_finder != "auto":
+        if range_finder == "gram" and is_complex:
+            raise ValueError("range_finder='gram' supports real dtypes only")
         return range_finder
-    if full_f64 or device_type == "cpu":
+    if full_f64 or is_complex or device_type == "cpu":
         return "direct"
     if 1 <= l <= d // 4 and n >= 4 * d and n >= 32768:
         return "gram"
@@ -272,7 +277,8 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
     Knobs (see the JAX function for the measured reasoning):
 
     * ``finder_precision`` — ``"full"``, ``"f32"`` (range finder of
-      float64 data in float32; projection and SVD stay float64) or
+      float64 data in float32; projection and SVD stay float64; complex
+      data ignores it, as casting would drop the imaginary half) or
       ``"auto"`` (``"f32"`` for float64 on the accelerator).
     * ``range_finder`` — ``"direct"`` (2q+1 streaming passes), ``"gram"``
       (one Gram pass, the subspace iteration on the d×d operator, one
@@ -287,8 +293,6 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
       ``"auto"`` (``"highest"`` for the mixed finder, else
       ``"default"``).
     """
-    if x.is_complex():
-        raise NotImplementedError("the port's randomized fit is real-only")
     n, d = x.shape
     dev = x.device.type
     l = min(n_components + n_oversamples, n, d)
@@ -306,6 +310,7 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
     range_finder = _resolve_range_finder(
         range_finder, n, d, l, dev,
         full_f64=x.dtype == torch.float64 and not mixed,
+        is_complex=x.is_complex(),
     )
     if gram_precision == "auto":
         gram_precision = "highest" if mixed else "default"
@@ -329,7 +334,7 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
             sigma > 0, 1.0 / torch.where(sigma > 0, sigma, 1.0), 0.0
         )
         # U = Xc·V·Σ⁻¹ (zero columns where σ was cut to 0).
-        u = centered_matmul(x, vt.mT * inv_sigma[None, :], means)
+        u = centered_matmul(x, vt.mH * inv_sigma[None, :], means)
         u, vt = svd_flip(u, vt)
         return {"u": u, "sigma": sigma, "vt": vt, "means": means,
                 "total_variance": tv, "off": off}
@@ -363,7 +368,7 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
         else:
             q = mdot(xc32, omega.to(f32))
             for _ in range(n_power_iters):
-                q = mdot(xc32.mT, norm(q))
+                q = mdot(xc32.mH, norm(q))
                 q = mdot(xc32, norm(q))
         q = q.to(x.dtype)
     elif range_finder == "gram":
@@ -403,9 +408,10 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
         # Qᵀ(X − 1μᵀ) with the Gram branch's means (the fused kernel's
         # column sums), formed (l, d) row-major: the SVD's transpose then
         # hands B's rows to K2 as the columns it rotates, with no copy.
+        # Real data only: the Gram finder rejects complex.
         b = mdot(q.mT, x) - torch.outer(q.sum(0), means)
     else:
-        b = xtm(q).mT  # (l, d): Qᵀ·Xc
+        b = xtm(q).mH  # (l, d): Qᴴ·Xc
     u_b, sigma, vt, off = svd_jit_cert(b)
     if q.shape[1] > l:
         # The fused route widened Q with the ones (centering) column; its

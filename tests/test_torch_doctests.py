@@ -15,8 +15,11 @@ _MODULES = [
     "petal_decomposition_tpu_torch.ops.gram_recovery",
     "petal_decomposition_tpu_torch.ops.linalg",
     "petal_decomposition_tpu_torch.ops.splitmm",
+    "petal_decomposition_tpu_torch.utils.debugging",
+    "petal_decomposition_tpu_torch.utils.native",
     "petal_decomposition_tpu_torch.utils.profiling",
     "petal_decomposition_tpu_torch.utils.rng",
+    "petal_decomposition_tpu_torch.utils.serialize",
 ]
 
 

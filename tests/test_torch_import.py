@@ -11,8 +11,11 @@ import torch
 _PROBE = """
 import importlib, pkgutil, sys
 import petal_decomposition_tpu_torch as pkg
-for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(mod.name)
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(sorted(names))
 print(sorted(m for m in ("jax", "jaxlib", "triton", "petal_decomposition_tpu")
              if m in sys.modules))
 """
@@ -22,8 +25,11 @@ def test_port_imports_no_jax_or_triton():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], capture_output=True, text=True,
         check=True, timeout=120,
-    ).stdout
-    assert out.strip().splitlines()[-1] == "[]"
+    ).stdout.strip().splitlines()
+    assert out[-1] == "[]"
+    imported = out[-2]
+    for name in ("utils.native", "utils.serialize", "utils.debugging"):
+        assert f"petal_decomposition_tpu_torch.{name}" in imported
 
 
 def test_public_api():
@@ -33,8 +39,11 @@ def test_public_api():
     assert set(pt.__all__) >= {
         "Pca", "PcaBuilder", "RandomizedPca", "RandomizedPcaBuilder",
         "FastIca", "FastIcaBuilder", "DecompositionError", "InvalidInput",
-        "LinalgError",
+        "LinalgError", "save", "load",
     }
+    from petal_decomposition_tpu_torch.utils import serialize
+
+    assert pt.save is serialize.save and pt.load is serialize.load
     assert pt.__version__
     # Same taxonomy and messages as the JAX package's errors.
     assert issubclass(pt.InvalidInput, pt.DecompositionError)

@@ -130,9 +130,13 @@ def test_empty_input_and_single_sample():
 
 
 def test_complex_input_is_not_ported():
-    x = np.ones((10, 3), np.complex128)
-    with pytest.raises(NotImplementedError, match="complex"):
-        _rpca(2, seed=1).fit(x)
+    """Complex input is ported to the in-core fit (its parity is in
+    ``test_torch_complex_randomized.py``); the streamed fits reject it,
+    as the JAX package's do."""
+    x = (np.arange(30.0).reshape(10, 3) % 7) * (1 + 0.5j)
+    assert _rpca(2, seed=1).fit_transform(x).dtype == torch.complex128
+    with pytest.raises(InvalidInput, match="real dtypes only"):
+        _rpca(2, seed=1).fit_batched([x])
 
 
 def _decaying(n=2000, d=96, seed=21, offset=0.5):
