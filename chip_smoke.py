@@ -41,7 +41,18 @@ through the entry points a user calls:
   200,000 × 256 float64 table (K3 on the 256² Gram), BASELINE config 2
   streamed (K3 on the Gram recovery's two 42×42 eighs), ``partial_fit``
   one block a call against ``fit_batched``, and config 3 streamed
-  through ``FastIca.fit_batched`` (K3 whitens in float64).
+  through ``FastIca.fit_batched`` (K3 whitens in float64);
+* the row-sharded fits (``parallel``): the flagship's K1 route through a
+  one-rank NCCL group (``mesh_one_card``); several shards of the one
+  card (``mesh_shards``: the flagship's route on 1,000,003 rows over
+  four shards, the last padded, with K1 on every shard held against its
+  plain version; exact float64 ``Pca`` over three shards through K3;
+  config 3's ``FastIca`` over two; BASELINE config 4's width, 1M × 4096
+  float32, over four); and two processes of this script on the card in
+  a gloo group, two shards each (``multihost``: the flagship and config 3
+  in core, the north-star stream split 8 / 8, lockstep ``partial_fit``,
+  replicated state bitwise equal on both), each fit held against the
+  same fit without a mesh.
 
 K2's σ is checked at the edges of its reach (the JAX kernel's gate), and
 past the gate QR + K2 on R is timed beside K2 on the panel itself
@@ -540,11 +551,15 @@ def qr_route_stages(x, kernel):
 
 
 def phase(fn):
-    """Run a phase and print its JSON line with the phase's seconds."""
+    """Run a phase and print its JSON line with the phase's seconds and
+    what it added to each kernel's main-path launch count."""
     def run(ctx):
+        before = {n: k["launches"] for n, k in ctx.kernels.items()}
         t0 = time.perf_counter()
         out = fn(ctx)
         out["phase_s"] = time.perf_counter() - t0
+        out["launches_added"] = {n: k["launches"] - before[n]
+                                 for n, k in ctx.kernels.items()}
         emit(out)
     return run
 
@@ -615,6 +630,7 @@ def phase_slice(ctx):
     gc = ctx.gram64 - N * torch.outer(means, means)
     sigma_ref = torch.linalg.eigvalsh(gc).flip(0)[:K].clamp(min=0).sqrt()
     ctx.slice_sigma = sigma = model.singular_values_.double()
+    ctx.slice_components = model.components_
     sig_rel = float(((sigma - sigma_ref).abs() / sigma_ref).max())
     require(sig_rel <= 1e-4, f"slice σ relative error {sig_rel} > 1e-4")
     z = model.transform(x)
@@ -1607,11 +1623,14 @@ def prefetch_depth(depth: int):
             os.environ["PETAL_STREAM_PREFETCH"] = old
 
 
-def north_star_blocks(dev):
+def north_star_blocks(dev, keep=range(NS_BLOCKS), moments=True):
     """The north-star stream as 16 host (numpy) blocks: ``make_data``'s
     low rank plus noise with one basis and one mean across the blocks,
     made on the card and copied to host memory; and the stream's float64
-    column sums, ‖X‖²_F and XᵀX, taken on the card block by block."""
+    column sums, ‖X‖²_F and XᵀX, taken on the card block by block.  Only
+    the blocks ``keep`` names go to the host (the multi-host phase's
+    processes each keep theirs), and ``moments=False`` skips the float64
+    moments (returned as None)."""
     import torch
 
     f64 = torch.float64
@@ -1625,17 +1644,22 @@ def north_star_blocks(dev):
     sq = torch.zeros((), dtype=f64, device=dev)
     gram = torch.zeros((NS_D, NS_D), dtype=f64, device=dev)
     blocks = []
-    for _ in range(NS_BLOCKS):
+    for i in range(NS_BLOCKS):
         x = 0.05 * torch.randn(NS_ROWS, NS_D, generator=g, device=dev)
         x += (torch.randn(NS_ROWS, K, generator=g, device=dev)
               * scale) @ basis
         x += mean
-        c = x.double()
-        cs += c.sum(0)
-        sq += (c * c).sum()
-        gram += c.mT @ c
-        blocks.append(x.cpu().numpy())
-        del x, c
+        if moments:
+            c = x.double()
+            cs += c.sum(0)
+            sq += (c * c).sum()
+            gram += c.mT @ c
+            del c
+        if i in keep:
+            blocks.append(x.cpu().numpy())
+        del x
+    if not moments:
+        return blocks, None, None, None
     return blocks, cs, sq, gram
 
 
@@ -1777,6 +1801,8 @@ def phase_stream_north_star(ctx):
     ms2, m2 = fit_ms(2, 3)
     launches = {name: mod.launches for name, mod in kernels.items()}
     ms0, m0 = fit_ms(0, 2)
+    ctx.ns_stream_sigma = m2.singular_values_
+    ctx.ns_stream_components = m2.components_
     s = m2.singular_values_.double()
     sig = float(((s - sigma_ref).abs() / sigma_ref).max())
     require(sig <= 1e-4, f"north-star stream σ relative error {sig} > 1e-4")
@@ -1867,6 +1893,8 @@ def phase_stream_exact(ctx):
         m32 = api.Pca(K, device=CUDA).fit_batched(blocks)
         ms32.append(m32.last_fit_stats_.wall_time_s * 1e3)
     s_ref = ctx.ns_sigma
+    ctx.ns_exact_sigma = m32.singular_values_
+    ctx.ns_exact_components = m32.components_
     sig32 = float(((m32.singular_values_.double() - s_ref).abs()
                    / s_ref).max())
     require(sig32 <= 1e-4, f"exact f32 stream σ error {sig32} > 1e-4")
@@ -2100,6 +2128,502 @@ def phase_stream_fast_ica(ctx):
     torch.cuda.empty_cache()
     return {"phase": "stream_fast_ica", "x": [NI, KI], "block_rows": 65536,
             "fits": out}
+
+
+# -- meshes: one rank of NCCL, several shards on one card, two processes --
+
+# 1,000,003 rows on four shards: the last shard carries one zero row.
+MESH_N_PADDED = 1_000_003
+# How long the multi-host phase waits for its two processes.
+MH_TIMEOUT_S = 420
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Host seconds spent in ``torch.distributed``'s collectives while
+    the block runs, the card synchronized before and after each call so
+    that the time is the collective's own and not queued work: yields a
+    dict whose ``"seconds"`` grows as they run."""
+    import torch
+    import torch.distributed as dist
+
+    spent = {"seconds": 0.0}
+    saved = {name: getattr(dist, name) for name in
+             ("all_reduce", "all_gather", "all_gather_into_tensor")}
+
+    def timing(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent["seconds"] += time.perf_counter() - t0
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(dist, name, timing(fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def mesh_data_route(api, mesh):
+    """The flagship's data route (K1, then K2 on Bᵀ) on ``mesh``."""
+    return (api.RandomizedPcaBuilder(K).seed(SEED).range_finder("gram")
+            .gram_projection("data").mesh(mesh).build())
+
+
+def agreement(sigma, comps, sigma_ref, comps_ref) -> dict:
+    """σ relative to each reference σ and to σ₁, and the largest entry
+    of the difference of the unit-norm component rows (the JAX package's
+    sharded-against-unsharded measure; rows signed by ``svd_flip`` on
+    both sides, compared sign-canonically all the same)."""
+    s, s_ref = sigma.double().cpu(), sigma_ref.double().cpu()
+    c, c_ref = comps.double().cpu(), comps_ref.double().cpu()
+    c = c * (c * c_ref).sum(1, keepdim=True).sign()
+    return {"sigma_rel": float(((s - s_ref).abs() / s_ref).max()),
+            "sigma_err_over_sigma1": float((s - s_ref).abs().max()
+                                           / s_ref[0]),
+            "components_max_abs": float((c - c_ref).abs().max())}
+
+
+def fit_pair(make_free, make_mesh_fit, x, kernels, reps=2):
+    """One warm-up each, then ``reps`` timed fits each (launches counted
+    around the mesh fits only): ``(free ms, mesh ms, mesh launches, free
+    model, mesh model)``."""
+    make_free().fit(x)
+    make_mesh_fit().fit(x)
+    free_ms, _, free = timed_fits(make_free, x, {}, reps)
+    mesh_ms, launches, meshed = timed_fits(make_mesh_fit, x, kernels, reps)
+    return free_ms, mesh_ms, launches, free, meshed
+
+
+@phase
+def phase_mesh_one_card(ctx):
+    """The collective path on one card: a one-rank NCCL group (tcp on
+    localhost) and ``make_mesh()`` over it, the flagship 1M × 1024 float32
+    ``RandomizedPca(32)`` on the data route (K1 on the one shard, K2 on
+    Bᵀ; every reduction one NCCL all-reduce) against the mesh-free fit:
+    σ and components within 1e-5, fit ms of both, and the collectives'
+    calls, bytes and seconds (one more fit with the card synchronized
+    around each collective)."""
+    import torch
+    import torch.distributed as dist
+
+    from petal_decomposition_tpu_torch.parallel import distributed as pdist
+    from petal_decomposition_tpu_torch.parallel import make_mesh, multihost
+
+    api = ctx.api
+    multihost.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        require(mesh.size == 1 and mesh.group is not None
+                and dist.get_backend() == "nccl", "not a one-rank NCCL mesh")
+        x = make_data(ctx.dev)
+        kernels = {"sketch_moments": ctx.k1, "jacobi_svd": ctx.k2}
+        pdist.collectives.reset()
+        free_ms, mesh_ms, launches, free, meshed = fit_pair(
+            lambda: data_route_model(api, CUDA),
+            lambda: mesh_data_route(api, mesh), x, kernels, reps=3)
+        calls = pdist.collectives.calls
+        require(launches["sketch_moments"] == 3, "K1 not once a fit")
+        ctx.add_launches(launches)
+        pdist.collectives.reset()
+        with timed_collectives() as spent:
+            timed = mesh_data_route(api, mesh).fit(x)
+        coll = {"calls_per_fit": pdist.collectives.calls,
+                "bytes_per_fit": pdist.collectives.bytes,
+                "seconds_per_fit": spent["seconds"],
+                "fit_ms_synchronized": timed.last_fit_stats_.wall_time_s
+                * 1e3}
+        require(calls == 4 * coll["calls_per_fit"],
+                "a fit's collectives changed between fits")
+    finally:
+        dist.destroy_process_group()
+    agree = agreement(meshed.singular_values_, meshed.components_,
+                      free.singular_values_, free.components_)
+    require(agree["sigma_rel"] <= 1e-5
+            and agree["components_max_abs"] <= 1e-5,
+            f"one-rank mesh vs mesh-free {agree}")
+    del x
+    torch.cuda.empty_cache()
+    return {"phase": "mesh_one_card", "x": [N, D], "k": K,
+            "group": "nccl, 1 rank", "route": "range_finder=gram, "
+            "gram_projection=data", "fit_ms_mesh_free": free_ms,
+            "fit_ms_mesh": mesh_ms, "launches_per_3_fits": launches,
+            "collectives": coll, **agree}
+
+
+@phase
+def phase_mesh_shards(ctx):
+    """Several shards on one card, each fit against the same fit without
+    a mesh: the flagship's route on 1,000,003 × 1024 float32 over four
+    shards (the last padded with a zero row; K1 four times a fit, each
+    shard's output held against K1's plain version first); exact
+    ``Pca(32)`` float64 on 200k × 256 over three shards (the Gram route,
+    K3 on the replicated 256² eigh); BASELINE config 3 (``FastIca``,
+    float64) over two shards at 30 iterations with K3 every step, and at
+    the card's defaults; and BASELINE config 4's width, ``RandomizedPca(32)``
+    on 1,048,576 × 4096 float32 over four shards — config 4 has 10M rows
+    (164 GB), which one 80 GB card cannot hold, so the rows are cut to the
+    north-star matrix's 1M (16 GiB).  Bands: float32 σ 1e-5 and
+    components 1e-4 (the JAX package's sharded-against-unsharded bands),
+    float64 1e-10, FastIca 1e-9 (as ``fast_ica_card_vs_cpu``)."""
+    import torch
+
+    from petal_decomposition_tpu_torch.parallel import (
+        make_mesh,
+        shard_rows_padded,
+    )
+
+    api, k1, k2, k3, dev = ctx.api, ctx.k1, ctx.k2, ctx.k3, ctx.dev
+    out = {}
+
+    # The flagship's route, four shards, the last padded.
+    mesh4 = make_mesh(4, devices=[CUDA] * 4)
+    x = make_data(dev, n=MESH_N_PADDED)
+    xs, n = shard_rows_padded(x, mesh4)
+    require(xs.padded and xs.valid == [xs.rows_per_shard] * 3
+            + [xs.rows_per_shard - 1], f"padding not as planned {xs.valid}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 40)
+    w = torch.randn(D, L, generator=g, device=dev)
+    ys, cs, sq = k1.fused_sketch_moments_on(xs, w)
+    shard_errs = []
+    for s, y in zip(xs.shards, ys.shards):
+        yp, _, _ = k1._sketch_moments_plain(s, w)
+        err = float((y - yp).abs().max())
+        require(err <= 1e-4 * float(yp.abs().max()),
+                f"K1 on a shard: Y error {err}")
+        shard_errs.append(err)
+    cs64, sq64, _ = f64_moments(x)
+    sq_rel = abs(float(sq) - float(sq64)) / float(sq64)
+    require(sq_rel <= 1e-5, f"K1 per shard: reduced ‖X‖² error {sq_rel}")
+    per_shard_ms = cuda_ms(lambda: k1.fused_sketch_moments_on(xs, w),
+                           10)
+    whole_ms = cuda_ms(lambda: k1.fused_sketch_moments(x, w), 10)
+    del ys, xs
+    kernels = {"sketch_moments": k1, "jacobi_svd": k2}
+    free_ms, mesh_ms, launches, free, meshed = fit_pair(
+        lambda: data_route_model(api, CUDA),
+        lambda: mesh_data_route(api, mesh4), x, kernels)
+    require(launches["sketch_moments"] == 2 * 4, "K1 not four times a fit")
+    ctx.add_launches(launches)
+    agree = agreement(meshed.singular_values_, meshed.components_,
+                      free.singular_values_, free.components_)
+    require(agree["sigma_rel"] <= 1e-5
+            and agree["components_max_abs"] <= 1e-4,
+            f"4-shard flagship vs mesh-free {agree}")
+    out["flagship_padded"] = {
+        "x": [MESH_N_PADDED, D], "shards": 4, "rows_per_shard":
+        -(-MESH_N_PADDED // 4), "k1_shard_y_max_abs_err": shard_errs,
+        "k1_sqnorm_rel_err": sq_rel, "k1_4_shards_ms": per_shard_ms,
+        "k1_whole_ms": whole_ms, "fit_ms_mesh_free": free_ms,
+        "fit_ms_mesh": mesh_ms, "launches_per_2_fits": launches, **agree}
+    del x, free, meshed
+    torch.cuda.empty_cache()
+
+    # Exact float64 Pca, the Gram route, three shards.
+    mesh3 = make_mesh(3, devices=[CUDA] * 3)
+    x64 = pca64_data(dev)
+    free_ms, mesh_ms, launches, free, meshed = fit_pair(
+        lambda: exact_model(api, CUDA, "gram"),
+        lambda: api.PcaBuilder(K).mesh(mesh3).build(), x64,
+        {"jacobi_svd_f64": k3})
+    ctx.add_launches(launches)
+    agree = agreement(meshed.singular_values_, meshed.components_,
+                      free.singular_values_, free.components_)
+    require(agree["sigma_rel"] <= 1e-10
+            and agree["components_max_abs"] <= 1e-10,
+            f"3-shard exact f64 vs mesh-free {agree}")
+    out["pca_f64_gram"] = {"x": [N64, D64], "shards": 3,
+                           "fit_ms_mesh_free": free_ms,
+                           "fit_ms_mesh": mesh_ms,
+                           "launches_per_2_fits": launches, **agree}
+    del x64, free, meshed
+
+    # BASELINE config 3, two shards.
+    mesh2 = make_mesh(2, devices=[CUDA] * 2)
+    s, a = ica_sources(dev)
+    xi = s @ a.mT
+    del s
+    fixed = dict(tol=0.0, max_iter=ICA_CHECK_ITERS, decorrelation="eigh",
+                 iteration_precision="full")
+    free_ms, mesh_ms, launches, free, meshed = fit_pair(
+        lambda: ica_model(api, CUDA, whiten_solver="eigh", **fixed),
+        lambda: api.FastIca(seed=SEED, mesh=mesh2, **fixed), xi,
+        {"jacobi_svd_f64": k3})
+    ctx.add_launches(launches)
+    ctx.ica_mesh_ref = free.components_
+    want, got = free.components_.double(), meshed.components_.double()
+    got = got * (got * want).sum(1, keepdim=True).sign()
+    ica_rel = rel_max(got, want)
+    require(meshed.n_iter_ == free.n_iter_ == ICA_CHECK_ITERS,
+            f"mesh FastIca n_iter {meshed.n_iter_}, {free.n_iter_}")
+    require(ica_rel <= 1e-9, f"2-shard FastIca vs mesh-free {ica_rel}")
+    k3.launches = 0
+    dm = api.FastIca(seed=SEED, mesh=mesh2).fit(xi)
+    ctx.add_launches({"jacobi_svd_f64": k3.launches})
+    amari = amari_distance(dm.components_.double() @ a)
+    ratio = sources_recovered(dm.components_.double() @ a)
+    require(amari <= AMARI_MAX and ratio >= SOURCE_RATIO_MIN,
+            f"mesh FastIca at the defaults: Amari {amari}, ratio {ratio}")
+    out["fast_ica_config3"] = {
+        "x": [NI, KI], "shards": 2, "fixed_knobs": fixed,
+        "fit_ms_mesh_free": free_ms, "fit_ms_mesh": mesh_ms,
+        "launches_per_2_fits": launches, "components_rel": ica_rel,
+        "defaults": {"fit_ms": dm.last_fit_stats_.wall_time_s * 1e3,
+                     "n_iter": dm.n_iter_, "amari_distance": amari,
+                     "min_source_ratio": ratio}}
+    del xi, free, meshed, dm
+
+    # BASELINE config 4's width at the north-star matrix's rows.
+    torch.cuda.empty_cache()
+    x = make_data(dev, n=NS_N, d=NS_D, seed=SEED + 20)
+    torch.cuda.empty_cache()
+    free_ms, mesh_ms, launches, free, meshed = fit_pair(
+        lambda: data_route_model(api, CUDA),
+        lambda: mesh_data_route(api, mesh4), x, kernels)
+    require(launches["sketch_moments"] == 2 * 4, "K1 not four times a fit")
+    ctx.add_launches(launches)
+    agree = agreement(meshed.singular_values_, meshed.components_,
+                      free.singular_values_, free.components_)
+    require(agree["sigma_rel"] <= 1e-5
+            and agree["components_max_abs"] <= 1e-4,
+            f"config 4 width, 4 shards vs mesh-free {agree}")
+    out["config4_width"] = {
+        "x": [NS_N, NS_D], "shards": 4,
+        "reduced": "BASELINE config 4 is 10,000,000 x 4096 float32 "
+                   "(164 GB) on 8 devices; one 80 GB card holds 1,048,576 "
+                   "rows (16 GiB), so the rows are cut to those",
+        "fit_ms_mesh_free": free_ms, "fit_ms_mesh": mesh_ms,
+        "launches_per_2_fits": launches, **agree}
+    del x, free, meshed
+    torch.cuda.empty_cache()
+    return {"phase": "mesh_shards", "fits": out}
+
+
+def multihost_child(rank: int, port: int, work: str) -> int:
+    """One of the multi-host phase's two processes: a gloo group on the
+    one card, two shards each (a mesh of four).  In core: the flagship
+    data route and config 3's FastIca on the whole matrix; streamed: the
+    north-star stream's 16 blocks split 8 / 8 by process, through
+    ``RandomizedPca`` and ``Pca`` ``fit_batched`` and two lockstep
+    ``partial_fit`` calls.  Replicated state must be bitwise equal on
+    both processes; process 0 holds σ, components and FastIca against the
+    single-process fits in ``refs.pt``.  Writes ``rank<r>.json``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import petal_decomposition_tpu_torch as api
+    from petal_decomposition_tpu_torch.ops.kernels import (
+        jacobi_f64_kernel as k3,
+        jacobi_kernels as k2,
+        sketch_kernel as k1,
+    )
+    from petal_decomposition_tpu_torch.parallel import distributed as pdist
+    from petal_decomposition_tpu_torch.parallel import make_mesh, multihost
+
+    dev = torch.device(CUDA)
+    multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh(devices=[CUDA] * 2)
+    require(mesh.size == 4 and mesh.world == 2, f"mesh {mesh}")
+    refs = torch.load(os.path.join(work, "refs.pt"))
+    kernels = {"sketch_moments": k1, "jacobi_svd": k2, "jacobi_svd_f64": k3}
+    launches = {name: 0 for name in kernels}
+    out = {"rank": rank, "mesh": repr(mesh)}
+    state = []
+
+    def counted(fit):
+        for mod in kernels.values():
+            mod.launches = 0
+        model = fit()
+        for name, mod in kernels.items():
+            launches[name] += mod.launches
+        return model
+
+    # The flagship, the whole matrix on both processes.
+    x = make_data(dev)
+    mesh_data_route(api, mesh).fit(x)  # warm-up
+    t0 = time.perf_counter()
+    m = counted(lambda: mesh_data_route(api, mesh).fit(x))
+    out["flagship_fit_ms"] = (time.perf_counter() - t0) * 1e3
+    require(launches["sketch_moments"] == 2, "K1 not once a local shard")
+    pdist.collectives.reset()
+    with timed_collectives() as spent:
+        timed = mesh_data_route(api, mesh).fit(x)
+    out["flagship_collectives"] = {
+        "calls": pdist.collectives.calls, "bytes": pdist.collectives.bytes,
+        "seconds": spent["seconds"],
+        "fit_ms_synchronized": timed.last_fit_stats_.wall_time_s * 1e3}
+    y = m.fit_transform(x)
+    require(tuple(y.shape) == (N, K), f"fit_transform shape {tuple(y.shape)}")
+    state += [m.singular_values_, m.components_, y[::997]]
+    out["flagship"] = agreement(m.singular_values_, m.components_,
+                                refs["slice_sigma"], refs["slice_components"])
+    del x, y
+
+    # Config 3's FastIca, the whole matrix on both processes.
+    s, a = ica_sources(dev)
+    xi = s @ a.mT
+    del s
+    fixed = dict(tol=0.0, max_iter=ICA_CHECK_ITERS, decorrelation="eigh",
+                 iteration_precision="full")
+    ica = counted(lambda: api.FastIca(seed=SEED, mesh=mesh, **fixed).fit(xi))
+    want, got = refs["ica"].double(), ica.components_.double().cpu()
+    got = got * (got * want).sum(1, keepdim=True).sign()
+    out["fast_ica_components_rel"] = rel_max(got, want)
+    dm = counted(lambda: api.FastIca(seed=SEED, mesh=mesh).fit(xi))
+    out["fast_ica_defaults"] = {
+        "n_iter": dm.n_iter_,
+        "amari_distance": amari_distance(dm.components_.double() @ a)}
+    state += [ica.components_, dm.components_]
+    del xi
+
+    # The north-star stream, blocks 8r … 8r + 7 on process r.
+    mine = range(8 * rank, 8 * rank + 8)
+    blocks, *_ = north_star_blocks(dev, keep=mine, moments=False)
+    torch.cuda.empty_cache()
+    r = counted(lambda: api.RandomizedPca(K, seed=SEED, mesh=mesh)
+                .fit_batched(blocks))
+    out["stream_randomized_fit_ms"] = r.last_fit_stats_.wall_time_s * 1e3
+    e = counted(lambda: api.Pca(K, mesh=mesh).fit_batched(blocks))
+    out["stream_exact_fit_ms"] = e.last_fit_stats_.wall_time_s * 1e3
+    pf = api.Pca(K, mesh=mesh)
+    pf.partial_fit(blocks[:4])
+    pf.partial_fit(blocks[4:])
+    require(pf.last_fit_stats_.extra["partial_fit_calls"] == 2,
+            "partial_fit calls not counted")
+    out["stream_randomized"] = agreement(
+        r.singular_values_, r.components_, refs["ns_stream_sigma"],
+        refs["ns_stream_components"])
+    out["stream_exact_sigma_err_over_sigma1"] = agreement(
+        e.singular_values_, e.components_, refs["ns_exact_sigma"],
+        refs["ns_exact_components"])["sigma_err_over_sigma1"]
+    out["partial_fit_vs_fit_batched"] = agreement(
+        pf.singular_values_, pf.components_, e.singular_values_,
+        e.components_)
+    state += [r.singular_values_, r.components_, e.singular_values_,
+              e.components_, pf.singular_values_, pf.components_]
+    # The cost of gloo's staging through host memory: the stream fold's
+    # gather of one 4096² float64 accumulator, and an all-reduce of it.
+    acc = torch.ones((NS_D, NS_D), dtype=torch.float64, device=dev)
+    with timed_collectives() as gather:
+        pdist.all_gather(acc, mesh)
+    with timed_collectives() as reduce:
+        pdist.psum([acc], mesh)
+    out["gloo_staging"] = {"bytes": acc.numel() * 8,
+                           "all_gather_s": gather["seconds"],
+                           "all_reduce_s": reduce["seconds"]}
+
+    flat = torch.cat([t.detach().reshape(-1).double() for t in state])
+    both = pdist.all_gather(flat, mesh)
+    out["replicated_state_bitwise_equal"] = bool(torch.equal(both[0],
+                                                             both[1]))
+    out["launches"] = launches
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    emit({"multihost_child": out})
+    # Leave the group together: a process that exits while its peer
+    # still holds gloo connections to it can abort in the teardown.
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+@phase
+def phase_multihost(ctx):
+    """Two processes of this script (``--multihost-child``) on the one
+    card, a gloo group (NCCL refuses two ranks on one device) with two
+    shards each: :func:`multihost_child`.  Gates, on both processes'
+    results: replicated state bitwise equal; against the single-process
+    fits of this run, the flagship's σ within 1e-5 and components within
+    1e-4, the streams' σ within 1e-5·σ₁ (Gram grade, as
+    ``stream_north_star`` holds the stream against the in-core fit), the
+    lockstep ``partial_fit`` within 1e-5 of ``fit_batched``, FastIca at
+    30 iterations within 1e-9 and its default fit's Amari distance
+    within ``AMARI_MAX``.  Each process has a deadline; one that fails
+    or outlives it fails the phase."""
+    import os
+    import tempfile
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="petal-multihost-")
+    torch.save({"slice_sigma": ctx.slice_sigma.cpu(),
+                "slice_components": ctx.slice_components.cpu(),
+                "ns_stream_sigma": ctx.ns_stream_sigma.cpu(),
+                "ns_stream_components": ctx.ns_stream_components.cpu(),
+                "ns_exact_sigma": ctx.ns_exact_sigma.cpu(),
+                "ns_exact_components": ctx.ns_exact_components.cpu(),
+                "ica": ctx.ica_mesh_ref.cpu()},
+               os.path.join(work, "refs.pt"))
+    torch.cuda.empty_cache()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-child",
+         str(rank), str(port), work],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in (0, 1)]
+    logs, codes = [], []
+    try:
+        deadline = time.monotonic() + MH_TIMEOUT_S
+        for p in procs:
+            log, _ = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            logs.append(log)
+            codes.append(p.returncode)
+    except subprocess.TimeoutExpired:
+        codes.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    tails = [log[-3000:] for log in logs]
+    require(codes == [0, 0],
+            f"multi-host processes exited {codes}:\n" + "\n----\n".join(tails))
+    res = []
+    for rank in (0, 1):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            res.append(json.load(f))
+    for r in res:
+        require(r["replicated_state_bitwise_equal"],
+                "replicated state differs between the processes")
+        ctx.add_launches(r["launches"])
+    r0 = res[0]
+    checks = {
+        "flagship sigma": (r0["flagship"]["sigma_rel"], 1e-5),
+        "flagship components": (r0["flagship"]["components_max_abs"], 1e-4),
+        "stream randomized": (
+            r0["stream_randomized"]["sigma_err_over_sigma1"], 1e-5),
+        "stream exact": (r0["stream_exact_sigma_err_over_sigma1"], 1e-5),
+        "partial_fit": (r0["partial_fit_vs_fit_batched"]["sigma_rel"], 1e-5),
+        "fast_ica": (r0["fast_ica_components_rel"], 1e-9),
+        "fast_ica defaults": (r0["fast_ica_defaults"]["amari_distance"],
+                              AMARI_MAX),
+    }
+    for what, (got, band) in checks.items():
+        require(got <= band, f"multi-host {what}: {got} > {band}")
+    return {"phase": "multihost", "processes": 2, "backend": "gloo",
+            "shards_per_process": 2, "wall_s": time.perf_counter() - t0,
+            "ranks": res}
 
 
 def k2_without_gate(k2):
@@ -2368,7 +2892,8 @@ PHASES = (phase_k1, phase_slice, phase_default, phase_pca_f64,
           phase_nan_debugging, phase_fast_ica_config3, phase_fast_ica_card_vs_cpu,
           phase_stream_north_star, phase_stream_exact,
           phase_stream_randomized_f64, phase_partial_fit,
-          phase_stream_fast_ica, phase_k2_reach, phase_k2, phase_k3)
+          phase_stream_fast_ica, phase_mesh_one_card, phase_mesh_shards,
+          phase_multihost, phase_k2_reach, phase_k2, phase_k3)
 
 KERNELS = {
     "sketch_moments": ("sketch_moments.cu", "sketch_kernel.py:143"),
@@ -2436,6 +2961,9 @@ def kernels_line(ctx) -> dict:
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 5 and sys.argv[1] == "--multihost-child":
+        return multihost_child(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2

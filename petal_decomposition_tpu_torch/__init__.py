@@ -4,10 +4,11 @@ The counterpart of ``petal_decomposition_tpu`` for NVIDIA Hopper: the
 same algorithms, API, error taxonomy and tolerances, in plain PyTorch
 around kernels written by hand for the card.  It imports ``torch`` and
 never ``jax``.  Ported: exact PCA, randomized PCA and FastICA, real and
-complex, in core and streamed from host blocks (real); ``save``/``load``
-in the JAX package's archive; the ``"native"`` host backend and the
-tiny-fit host offload; ``utils.debugging`` (``nan_debugging``,
-``check_finite``).  Not ported yet: device meshes and multi-host fits.
+complex, in core and streamed from host blocks (real); row-sharded fits
+on a device mesh and across processes (``parallel``: ``make_mesh``,
+``multihost.initialize``); ``save``/``load`` in the JAX package's
+archive; the ``"native"`` host backend and the tiny-fit host offload;
+``utils.debugging`` (``nan_debugging``, ``check_finite``).
 
 >>> from petal_decomposition_tpu_torch import (
 ...     Pca, PcaBuilder, RandomizedPca, RandomizedPcaBuilder,

@@ -1,8 +1,8 @@
 """Shared model plumbing: transform helpers and input validation — the
 counterpart of ``petal_decomposition_tpu/models/_common.py`` (ports of
 pca.rs:720-811 plus the dimension checks at pca.rs:199-204, 736-741,
-798-803).  The JAX package's complex→host redirect and mesh helpers
-have no counterpart here: complex tensors stay on the model's device.
+798-803).  The JAX package's complex→host redirect has no counterpart
+here: complex tensors stay on the model's device.
 """
 
 from __future__ import annotations
@@ -17,7 +17,10 @@ __all__ = [
     "default_device",
     "as_matrix",
     "check_device",
-    "reject_mesh",
+    "model_device",
+    "as_input",
+    "check_mesh_complex",
+    "gathered",
     "check_min_dims",
     "check_fitted",
     "real_dtype",
@@ -69,13 +72,55 @@ def as_matrix(x, device, complex_ok: bool = False) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
-def reject_mesh(mesh) -> None:
-    """Device meshes are not ported yet: a model given one raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh fits are not ported to PyTorch yet (ROADMAP.md §1 "
-            "item 8); fit on one device"
+def model_device(mesh, device) -> torch.device:
+    """The device a model's state lives on: a mesh's first device (a
+    ``device=`` naming another raises), else ``device``, else the card."""
+    from ..parallel.mesh import Mesh
+
+    if isinstance(mesh, Mesh):
+        if device is not None and torch.device(device) != mesh.lead:
+            raise ValueError(
+                f"device={device!r} is not the mesh's first device "
+                f"{mesh.lead}; a mesh model lives there"
+            )
+        return mesh.lead
+    return default_device() if device is None else torch.device(device)
+
+
+def as_input(x, device, mesh, complex_ok: bool = False) -> torch.Tensor:
+    """A fit's input: :func:`as_matrix` on the model's ``device``, or for
+    a mesh fit where it already is (host data stays on the host and each
+    shard copies only its own rows)."""
+    if mesh is None:
+        return as_matrix(x, device, complex_ok)
+    for dev in mesh.devices:
+        check_device(dev)
+    home = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    return as_matrix(x, home, complex_ok)
+
+
+def check_mesh_complex(mesh, dtype) -> None:
+    """The complex-on-mesh contract: complex fits need no mesh or an
+    all-CPU one; an accelerator mesh raises ``InvalidInput`` before any
+    work."""
+    if mesh is None or not dtype.is_complex:
+        return
+    types = {d.type for d in mesh.devices}
+    if types - {"cpu"}:
+        raise InvalidInput(
+            "complex fits on an accelerator mesh are unsupported, as in "
+            "the JAX package: drop .mesh(...) to fit on the model's "
+            "device, or build the mesh from CPU devices. "
+            f"Mesh devices: {sorted(types)}."
         )
+
+
+def gathered(u, n: int):
+    """A fit's per-row result as one tensor of its ``n`` data rows: row
+    shards are gathered (from every process) and their padding cut."""
+    from ..parallel.mesh import Rows
+
+    return u.full()[:n] if isinstance(u, Rows) else u
 
 
 def check_min_dims(x, n_components: int) -> None:

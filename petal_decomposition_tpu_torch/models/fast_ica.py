@@ -27,10 +27,13 @@ Where the JAX package runs the whole iteration as one on-device
 tol) & (it < budget)``, reads ``lim`` once a step.
 
 ``fit_batched`` and ``transform_batched`` stream row blocks in two
-passes (:mod:`.streaming`).
+passes (:mod:`.streaming`).  On a mesh (``mesh=``, :mod:`..parallel.mesh`)
+the fit is ``parallel.distributed.fast_ica_fit``: the Gram whitening
+reduced over the row shards, each step's k×k products reduced over
+their column blocks of X₁, the decorrelation replicated.
 
 Not ported: ``key=`` and ``with_key`` (a JAX key cannot cross over; the
-port seeds from ``seed``) and device meshes (``ROADMAP.md`` §1 item 8).
+port seeds from ``seed``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..errors import InvalidInput, LinalgError
 from ..ops import linalg as _linalg
 from ..ops import splitmm
 from ..ops.linalg import mdot
+from ..parallel.mesh import Columns
 from ..utils import rng as rng_util
 from . import _common
 
@@ -160,23 +164,46 @@ def _update(w, gx, gsum, decorr, p_inv: float, pad_g0: float):
     return w1, lim
 
 
+def _sums(w, xs, part):
+    """``(G·Xᵀ, g′ row sums)`` of one step: ``part(w, xs)`` on one
+    tensor, or on every column block of a mesh's ``Columns`` with the
+    two reduced together (one ``psum`` a step)."""
+    if not isinstance(xs, Columns):
+        return part(w, xs)
+
+    def both(block, wd):
+        gx, gsum = part(wd, block)
+        return torch.cat([gx, gsum[:, None]], dim=1)
+
+    out = xs.psum(both, w)
+    return out[:, :-1], out[:, -1]
+
+
 def _step(w, xs, fun: str, decorr, p_inv: float, pad_g0: float = 0.0):
-    """One fixed-point update of W on the rows of ``xs``: ``(W1, lim)``.
-    ``p_inv`` is 1/n; ``pad_g0`` the g′ row-sum share of padded
-    columns."""
-    gwtx, gsum = _contrast_sums(fun, mdot(w, xs))  # ica.rs:332
-    return _update(w, mdot(gwtx, xs.mT), gsum, decorr, p_inv, pad_g0)
+    """One fixed-point update of W on the rows of ``xs`` (a tensor, or
+    the column blocks of a mesh): ``(W1, lim)``.  ``p_inv`` is 1/n;
+    ``pad_g0`` the g′ row-sum share of padded columns."""
+    def part(wd, x):
+        gwtx, gsum = _contrast_sums(fun, mdot(wd, x))  # ica.rs:332
+        return mdot(gwtx, x.mT), gsum
+
+    return _update(w, *_sums(w, xs, part), decorr, p_inv, pad_g0)
 
 
 def _step_ds(w, xh, xl, fun: str, decorr, p_inv: float,
              pad_g0: float = 0.0):
     """:func:`_step` of the ds64 stage: the two products as split
     float32 products of the pre-split data ``(xh, xl)``, the contrast in
-    float32, the state in float64."""
-    wx32 = splitmm.mm_split_f32(w, xh, xl)
-    gwtx, gsum = _contrast_sums(fun, wx32, sum_dtype=torch.float64)
-    return _update(w, splitmm.mm_split_chunked_f64(gwtx, xh, xl), gsum,
-                   decorr, p_inv, pad_g0)
+    float32, the state in float64.  On a mesh ``xh`` holds each column
+    block's ``(hi, lo)`` pair and ``xl`` is None."""
+    def part(wd, hl):
+        h, lo = hl
+        wx32 = splitmm.mm_split_f32(wd, h, lo)
+        gwtx, gsum = _contrast_sums(fun, wx32, sum_dtype=torch.float64)
+        return splitmm.mm_split_chunked_f64(gwtx, h, lo), gsum
+
+    xs = xh if xl is None else (xh, xl)
+    return _update(w, *_sums(w, xs, part), decorr, p_inv, pad_g0)
 
 
 def _iterate(body, w, tol: float, budget: int, lim_dtype):
@@ -198,14 +225,17 @@ def _ica_par_core(x, tol: float, max_iter: int, w_init, fun: str,
     """The FastICA fixed-point iteration (ref: ica.rs:319-361):
     ``(w, lim, n_iter)``.
 
-    ``n_valid``: the number of real sample columns when ``x`` is
-    zero-padded; the g′ sums are corrected so padded columns count for
-    nothing.  ``precision="f32"`` (float64 data only) runs three stages
-    within the shared ``max_iter`` budget, each until its own noise
-    floor or ``tol``, whichever is larger: float32 products and contrast
-    to ``_F32_LIM_FLOOR``; split-float32 products (``ops/splitmm.py``)
-    with a float32 contrast and float64 state to ``_DS64_LIM_FLOOR``;
-    float64 to ``tol``.  ``lim`` is the last stage that ran's.
+    ``x`` is the k × n tensor, or its column blocks on a mesh
+    (:class:`..parallel.mesh.Columns`), whose per-step sums are reduced
+    over the blocks.  ``n_valid``: the number of real sample columns
+    when ``x`` is zero-padded; the g′ sums are corrected so padded
+    columns count for nothing.  ``precision="f32"`` (float64 data only)
+    runs three stages within the shared ``max_iter`` budget, each until
+    its own noise floor or ``tol``, whichever is larger: float32
+    products and contrast to ``_F32_LIM_FLOOR``; split-float32 products
+    (``ops/splitmm.py``) with a float32 contrast and float64 state to
+    ``_DS64_LIM_FLOOR``; float64 to ``tol``.  ``lim`` is the last stage
+    that ran's.
     """
     n_pad = x.shape[1]
     n = n_pad if n_valid is None else n_valid
@@ -231,12 +261,15 @@ def _ica_par_core(x, tol: float, max_iter: int, w_init, fun: str,
     if precision == "f32" and x.dtype == torch.float64:
         f32 = torch.float32
         tol32 = _rounded(max(tol, _F32_LIM_FLOOR), f32)
-        w32, lim32, n1 = _iterate(body_on(x.to(f32)), w0.to(f32), tol32,
+        x32 = (x.to(f32) if isinstance(x, torch.Tensor)
+               else x.map(lambda p: p.to(f32)))
+        w32, lim32, n1 = _iterate(body_on(x32), w0.to(f32), tol32,
                                   max_iter, f32)
         # Re-orthonormalize at full precision before polishing: the
         # float32 W carries ~eps_f32 departures from orthonormality.
         w_b = symmetric_decorrelation(w32.to(x.dtype))
-        xh, xl = splitmm.split_f64(x)
+        xh, xl = (splitmm.split_f64(x) if isinstance(x, torch.Tensor)
+                  else (x.map(splitmm.split_f64), None))
         w_d, lim_d, nd = _iterate(body_ds(xh, xl), w_b,
                                   max(tol, _DS64_LIM_FLOOR), max_iter - n1,
                                   real)
@@ -344,7 +377,9 @@ def _whitening_matrix(xt: torch.Tensor, k: int, solver: str):
         # linalg.svd raises LinalgError itself on non-convergence.
         u, sigma, _ = _linalg.svd(xt, compute_vt=False)
         off = torch.zeros((), dtype=sigma.dtype, device=sigma.device)
-        return (*_whitening_from_spectrum(u, sigma, k, max(xt.shape)), off)
+        kmat, sigma_k, _ = _whitening_from_spectrum(u, sigma, k,
+                                                    max(xt.shape))
+        return kmat, sigma_k, off
     return whitening_from_gram(mdot(xt, xt.mH), k, max(xt.shape))
 
 
@@ -354,10 +389,12 @@ def whitening_from_gram(gram: torch.Tensor, k: int, rank_dim: int):
     lam, vecs, off = _linalg.eigh_psd_jit_cert(gram)  # ascending
     u = vecs.flip(1)
     sigma = torch.sqrt(torch.clamp(lam.flip(0), min=0.0))
-    return (*_whitening_from_spectrum(u, sigma, k, rank_dim), off)
+    kmat, sigma_k, _ = _whitening_from_spectrum(u, sigma, k, rank_dim)
+    return kmat, sigma_k, off
 
 
 def _whitening_from_spectrum(u, sigma, k: int, rank_dim: int):
+    """``(K, sigma_k, 1/sigma_k)`` with the rank cutoff applied."""
     u_k = u[:, :k]
     sigma_k = sigma[:k]
     # σ below σmax·eps·max(10, 4√max(n, d)) is numerically zero and
@@ -369,7 +406,7 @@ def _whitening_from_spectrum(u, sigma, k: int, rank_dim: int):
     ok = sigma_k > cutoff
     inv = torch.where(ok, 1.0 / torch.where(ok, sigma_k, 1.0), 0.0)
     kmat = (u_k * inv.to(u_k.dtype)[None, :]).mT
-    return kmat, sigma_k
+    return kmat, sigma_k, inv
 
 
 class FastIca:
@@ -409,7 +446,7 @@ class FastIca:
             raise ValueError(
                 f"unknown iteration precision {iteration_precision!r}"
             )
-        _common.reject_mesh(mesh)
+        self._mesh = mesh
         self._decorrelation = decorrelation
         self._iteration_precision = iteration_precision
         self._n_components = (
@@ -423,10 +460,7 @@ class FastIca:
         self._tol = float(tol)  # ref hardcodes 1e-4 (ica.rs:216)
         self._max_iter = int(max_iter)  # ref hardcodes 200 (ica.rs:216)
         self._whiten_solver = whiten_solver
-        self._device = (
-            _common.default_device() if device is None
-            else torch.device(device)
-        )
+        self._device = _common.model_device(mesh, device)
         self._components = None  # (k, d)
         self._means = None  # (d,)
         self._n_iter = 0
@@ -461,7 +495,7 @@ class FastIca:
     def fit(self, x) -> "FastIca":
         from ..utils.profiling import record_fit
 
-        x = _common.as_matrix(x, self._device, complex_ok=True)
+        x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
         with record_fit(self, x.shape[0], x.shape[1], self._device) as stats:
             self._inner_fit(x)
             stats.n_iter = self._n_iter
@@ -547,24 +581,29 @@ class FastIca:
         """Fit, then return ``(components·X_c)ᵀ`` (ref: ica.rs:147-157)."""
         from ..utils.profiling import record_fit
 
-        x = _common.as_matrix(x, self._device, complex_ok=True)
+        x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
         with record_fit(self, x.shape[0], x.shape[1], self._device) as stats:
             xt_c = self._inner_fit(x)
             stats.n_iter = self._n_iter
+        if xt_c is None:  # a mesh fit: the same result by the projection
+            return self.transform(x)
         return mdot(self._components, xt_c).mT
 
-    def _resolved(self, x):
+    def _resolved(self, dtype: torch.dtype):
+        device_type = self._device.type
         return dict(
             fun=self._fun,
             decorrelation=resolve_decorrelation(self._decorrelation,
-                                                x.device.type),
+                                                device_type),
             precision=resolve_iteration_precision(
-                self._iteration_precision, x.dtype, x.device.type),
+                self._iteration_precision, dtype, device_type),
         )
 
     def _inner_fit(self, x):
         """ref: ica.rs:167-221.  Returns the centered, transposed data
-        (d × n), as the reference does."""
+        (d × n), as the reference does, or None for a mesh fit."""
+        # Complex on an accelerator mesh is a defined error.
+        _common.check_mesh_complex(self._mesh, x.dtype)
         n, d = x.shape
         if not self._whiten:
             if n == 0 or d == 0:
@@ -583,6 +622,7 @@ class FastIca:
             # fitted with an empty component matrix, so transform and
             # fit_transform degrade gracefully (ica.rs:174-176 returns
             # early and leaves the build state).
+            x = x.to(self._device)
             means = (x.mean(0) if n > 0 else
                      torch.zeros((d,), dtype=x.dtype, device=x.device))
             self._components = torch.zeros((0, d), dtype=x.dtype,
@@ -592,6 +632,8 @@ class FastIca:
             if n == 0:
                 return torch.zeros((d, 0), dtype=x.dtype, device=x.device)
             return (x - means).mT
+        if self._mesh is not None:
+            return self._fit_mesh(x, k)
 
         means = x.mean(0)
         xt = (x - means).mT  # (d, n) — ref: ica.rs:178-188
@@ -607,7 +649,7 @@ class FastIca:
         sub = rng_util.split(self._gen)
         w_init = rng_util.normal(sub, (k, k), x.dtype, x.device)
         w, n_iter = ica_par(x1, self._tol, self._max_iter, w_init,
-                            **self._resolved(x))
+                            **self._resolved(x.dtype))
         check_decorrelation(w)
         self._components = mdot(w, kmat)  # ref: ica.rs:217
         self._means = means
@@ -619,17 +661,47 @@ class FastIca:
         is the square unmixing W and the means are zero, so ``transform``
         is ``x·Wᵀ``."""
         d = x.shape[1]
+        if self._mesh is not None:
+            return self._fit_mesh(x, d)
         xt = x.mT
         sub = rng_util.split(self._gen)
         w_init = rng_util.normal(sub, (d, d), x.dtype, x.device)
         w, n_iter = ica_par(xt, self._tol, self._max_iter, w_init,
-                            **self._resolved(x))
+                            **self._resolved(x.dtype))
         check_decorrelation(w)
         self._components = w.contiguous()  # as Pca's
         self._means = torch.zeros((d,), dtype=_common.real_dtype(x.dtype),
                                   device=x.device)
         self._n_iter = n_iter
         return xt
+
+    def _fit_mesh(self, x, k: int):
+        """The fit on the mesh's row shards (JAX ``models/fast_ica.py:
+        594-633``), whitened (k components) or not (k = d): W₀ from the
+        next sub-stream of the generator, ``fast_ica_fit`` on the padded
+        shards, then the certificates — the whitening eigensolve's only
+        when it ran — before any state changes.  Returns None:
+        ``fit_transform`` projects with ``transform``."""
+        from ..parallel.distributed import fast_ica_fit
+        from ..parallel.mesh import shard_rows_padded
+
+        sub = rng_util.split(self._gen)
+        xs, n = shard_rows_padded(x, self._mesh)
+        w_init = rng_util.normal(sub, (k, k), x.dtype, self._device)
+        real = _common.real_dtype(x.dtype)
+        st = fast_ica_fit(
+            xs, w_init, tol=self._tol, max_iter=self._max_iter,
+            n_components=k if self._whiten else None, whiten=self._whiten,
+            **self._resolved(x.dtype),
+        )
+        if self._whiten:
+            _linalg.check_certificate(st["off"], real, x.shape[1],
+                                      "eigendecomposition")
+        check_decorrelation_value(st["w_orth_err"], real)
+        self._components = st["components"].contiguous()
+        self._means = st["means"]
+        self._n_iter = int(st["n_iter"])
+        return None
 
 
 class FastIcaBuilder:
@@ -684,8 +756,7 @@ class FastIcaBuilder:
         return self
 
     def mesh(self, mesh) -> "FastIcaBuilder":
-        """Not ported yet: ``build()`` raises ``NotImplementedError`` for
-        a mesh."""
+        """Row-shard fits over a :class:`..parallel.mesh.Mesh`."""
         self._mesh = mesh
         return self
 

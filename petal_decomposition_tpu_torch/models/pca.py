@@ -12,9 +12,10 @@ goes through ``torch.linalg`` on the model's device.  Under the
 at most ``config.host_offload_max_elements`` elements, the exact fit
 runs on the host C++ core (:func:`_fit_native`).  ``fit_batched``,
 ``partial_fit`` and ``transform_batched`` stream row blocks
-(:mod:`.streaming`).
-
-Not ported yet: device meshes (``ROADMAP.md`` §1 item 8).
+(:mod:`.streaming`).  On a mesh (``mesh=``, :mod:`..parallel.mesh`) the
+``"auto"`` solver is the Gram route, its d×d Gram reduced over the row
+shards and its eigensolve replicated; ``solver="full"`` gathers the
+padded matrix and takes its SVD with the padded rows masked.
 """
 
 from __future__ import annotations
@@ -24,22 +25,31 @@ import torch
 from ..errors import InvalidInput
 from ..ops import linalg as _linalg
 from ..ops.kernels import jacobi_kernels
+from ..ops.centered import mask_rows
 from ..ops.linalg import svd_flip, svd_jit_cert
 from . import _common
 
 __all__ = ["Pca", "PcaBuilder"]
 
 
-def _fit_exact(x, *, centering: bool):
+def _fit_exact(x, *, centering: bool, n_valid: int | None = None):
     """The whole exact-SVD fit (ref: pca.rs:195-231): ``(u, sigma, vt,
-    means, total_variance, off)`` with the total variance Σσ²."""
+    means, total_variance, off)`` with the total variance Σσ².
+
+    ``n_valid``: the true row count when ``x`` carries zero rows padded
+    for even sharding.  The means divide by it and the padded rows are
+    re-zeroed after centering, so σ, Vᵀ and the total variance are the
+    unpadded fit's (zero rows add only zero singular values); the
+    caller cuts U back to ``n_valid`` rows."""
     n, d = x.shape
     if centering:
-        means = x.sum(0) / n
+        # Padded rows are zeros: the column sum is the data rows' sum.
+        means = x.sum(0) / (n if n_valid is None else n_valid)
         xc = x - means
     else:
         means = torch.zeros((d,), dtype=x.dtype, device=x.device)
         xc = x
+    xc = mask_rows(xc, n_valid)
     u, sigma, vt, off = svd_jit_cert(xc)
     u, vt = svd_flip(u, vt)
     return u, sigma, vt, means, sigma @ sigma, off
@@ -95,17 +105,15 @@ class Pca:
             raise InvalidInput("n_components must be non-negative")
         if solver not in ("auto", "full", "gram"):
             raise ValueError(f"unknown solver {solver!r}")
-        _common.reject_mesh(mesh)
         self._n_components = int(n_components)
         self._centering = bool(centering)
+        self._mesh = mesh
         # "full": thin SVD of the data (1e-10 parity path).
-        # "gram": covariance eigenproblem (κ² in σ, one d×d Gram).
-        # "auto": gram only where _auto_prefers_gram says so.
+        # "gram": covariance eigenproblem (κ² in σ, one d×d Gram; the
+        #   scalable row-sharded path).
+        # "auto": gram on a mesh, else where _auto_prefers_gram says so.
         self._solver = solver
-        self._device = (
-            _common.default_device() if device is None
-            else torch.device(device)
-        )
+        self._device = _common.model_device(mesh, device)
         self._components = None  # (k, d)
         self._means = None  # (d,)
         self._singular = None  # (k,) real
@@ -163,7 +171,7 @@ class Pca:
         """Fit the model (ref: pca.rs:116-122).  Returns ``self``."""
         from ..utils.profiling import record_fit
 
-        x = _common.as_matrix(x, self._device, complex_ok=True)
+        x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
         with record_fit(self, x.shape[0], x.shape[1], self._device):
             self._inner_fit(x)
         return self
@@ -179,9 +187,9 @@ class Pca:
         """Fit and project in one pass, reusing U (ref: pca.rs:153-167)."""
         from ..utils.profiling import record_fit
 
-        x = _common.as_matrix(x, self._device, complex_ok=True)
+        x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
         with record_fit(self, x.shape[0], x.shape[1], self._device):
-            u = self._inner_fit(x)
+            u = _common.gathered(self._inner_fit(x), x.shape[0])
         return _common.transform_with_u(
             u, self._singular_full, self._n_components
         )
@@ -252,10 +260,15 @@ class Pca:
         return n >= 8 * d
 
     def _inner_fit(self, x):
-        """ref: pca.rs:195-231."""
+        """ref: pca.rs:195-231.  Returns U: row shards for a Gram fit on
+        a mesh, else a tensor."""
         from ..parallel.distributed import pca_fit_gram
+        from ..parallel.mesh import shard_rows_padded
 
         self._stream = None  # a full fit restarts any partial_fit stream
+        mesh = self._mesh
+        # Complex on an accelerator mesh is a defined error.
+        _common.check_mesh_complex(mesh, x.dtype)
         k = self._n_components
         _common.check_min_dims(x, k)
         n, d = x.shape
@@ -264,30 +277,40 @@ class Pca:
             # inner_fit early-returns an empty U without updating state
             # (pca.rs:207-211).
             self._singular_full = torch.zeros(
-                (0,), dtype=_common.real_dtype(x.dtype), device=x.device
+                (0,), dtype=_common.real_dtype(x.dtype), device=self._device
             )
-            return torch.zeros((0, d), dtype=x.dtype, device=x.device)
+            return torch.zeros((0, d), dtype=x.dtype, device=self._device)
 
         use_gram = self._solver == "gram" or (
-            self._solver == "auto" and self._auto_prefers_gram(x)
+            self._solver == "auto"
+            and (mesh is not None or self._auto_prefers_gram(x))
         )
+        if mesh is not None:
+            xs, _ = shard_rows_padded(x, mesh)
         # Certificates are checked before any state mutates: a failed
         # refit leaves a previously fitted model untouched.
         if use_gram:
-            st = pca_fit_gram(x, centering=self._centering)
+            st = pca_fit_gram(x if mesh is None else xs,
+                              centering=self._centering)
             u, sigma, vt = st["u"], st["sigma"], st["vt"]
             means, total_var = st["means"], st["total_variance"]
             _linalg.check_certificate(
                 st["off"], sigma.dtype, d, "eigendecomposition"
             )
-        elif _linalg._use_native(x.dtype, x.shape, x.device):
+        elif mesh is None and _linalg._use_native(x.dtype, x.shape,
+                                                  x.device):
             u, sigma, vt, means, total_var = _fit_native(
                 x, centering=self._centering
             )
         else:
+            # On a mesh the SVD is replicated: the padded matrix is
+            # gathered on each process's first device and its padded rows
+            # masked.
             u, sigma, vt, means, total_var, off = _fit_exact(
-                x, centering=self._centering
+                x if mesh is None else xs.full(), centering=self._centering,
+                n_valid=None if mesh is None else n,
             )
+            u = u[:n]
             _linalg.check_certificate(
                 off, sigma.dtype, max(n, d), "singular value decomposition"
             )
@@ -324,8 +347,7 @@ class PcaBuilder:
         return self
 
     def mesh(self, mesh) -> "PcaBuilder":
-        """Not ported yet: ``build()`` raises ``NotImplementedError`` for
-        a mesh."""
+        """Row-shard fits over a :class:`..parallel.mesh.Mesh`."""
         self._mesh = mesh
         return self
 

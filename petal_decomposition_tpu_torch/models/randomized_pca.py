@@ -18,7 +18,10 @@ device, as the JAX package's host-redirected complex fit does (LU → P·L
 normalizer, direct finder, explicit centering, Householder QR, the SVD
 of B by ``torch.linalg``), and so runs no kernel.  ``fit_batched``,
 ``partial_fit`` and ``transform_batched`` stream real row blocks
-(:mod:`.streaming`); device meshes are not ported yet.
+(:mod:`.streaming`).  On a mesh (``mesh=``, :mod:`..parallel.mesh`) the
+fit runs on the row shards with CholeskyQR2 as the normalizer, each
+contraction reduced over the shards, and the SVD of B replicated; the
+data-side Gram route of float32 on the card runs K1 on every shard.
 """
 
 from __future__ import annotations
@@ -106,7 +109,6 @@ class RandomizedPca:
                  device=None):
         if n_components < 0:
             raise InvalidInput("n_components must be non-negative")
-        _common.reject_mesh(mesh)
         if power_iteration_normalizer not in ("auto",) + _NORMALIZERS:
             raise ValueError(
                 f"unknown normalizer {power_iteration_normalizer!r}"
@@ -128,10 +130,8 @@ class RandomizedPca:
         self._range_finder = range_finder
         self._gram_precision = gram_precision
         self._gram_projection = gram_projection
-        self._device = (
-            _common.default_device() if device is None
-            else torch.device(device)
-        )
+        self._mesh = mesh
+        self._device = _common.model_device(mesh, device)
         if generator is not None:
             self._gen = generator
         else:
@@ -197,7 +197,7 @@ class RandomizedPca:
     def fit(self, x) -> "RandomizedPca":
         from ..utils.profiling import record_fit
 
-        x = _common.as_matrix(x, self._device, complex_ok=True)
+        x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
         with record_fit(self, x.shape[0], x.shape[1], self._device):
             self._inner_fit(x)
         return self
@@ -211,9 +211,9 @@ class RandomizedPca:
     def fit_transform(self, x):
         from ..utils.profiling import record_fit
 
-        x = _common.as_matrix(x, self._device, complex_ok=True)
+        x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
         with record_fit(self, x.shape[0], x.shape[1], self._device):
-            u = self._inner_fit(x)
+            u = _common.gathered(self._inner_fit(x), x.shape[0])
         return _common.transform_with_u(
             u, self._singular_full, self._n_components
         )
@@ -271,30 +271,38 @@ class RandomizedPca:
         return x.device.type == "cpu" or x.is_complex()
 
     def _resolve_normalizer(self, x) -> str:
-        """``"auto"``: LU→P·L under the CPU autos (the reference's
-        normalizer), matmul-only CholeskyQR2 on the accelerator."""
+        """``"auto"``: CholeskyQR2 on a mesh (its Gram is one reduction
+        over the shards); else LU→P·L under the CPU autos (the
+        reference's normalizer) and matmul-only CholeskyQR2 on the
+        accelerator."""
         if self._normalizer != "auto":
             return self._normalizer
+        if self._mesh is not None:
+            return "cholqr2"
         return "lu" if self._host_autos(x) else "cholqr2"
 
     def _inner_fit(self, x):
         from ..parallel.distributed import randomized_pca_fit
 
         self._stream = None  # a full fit restarts any partial_fit stream
+        # Complex on an accelerator mesh is a defined error.
+        _common.check_mesh_complex(self._mesh, x.dtype)
         k = self._n_components
         _common.check_min_dims(x, k)
         n, d = x.shape
         if n == 0:
             self._singular_full = torch.zeros(
-                (0,), dtype=_common.real_dtype(x.dtype), device=x.device
+                (0,), dtype=_common.real_dtype(x.dtype), device=self._device
             )
-            return torch.zeros((0, d), dtype=x.dtype, device=x.device)
+            return torch.zeros((0, d), dtype=x.dtype, device=self._device)
 
         # Successive fits consume successive sub-streams — the
         # stateful-RNG contract of the reference (its PCG advances).
         sub = rng_util.split(self._gen)
         l = min(k + self._n_oversamples, n, d)
-        omega = rng_util.normal(sub, (d, l), x.dtype, x.device)
+        omega = rng_util.normal(sub, (d, l), x.dtype, self._device)
+        if self._mesh is not None:
+            return self._fit_mesh(x, omega)
 
         # Large fits on the accelerator take the fast rounding-
         # equivalent route: fused rank-1 centering and matmul-only
@@ -329,6 +337,43 @@ class RandomizedPca:
             gram_projection=self._gram_projection,
             fused_sketch=fused_ok,
         )
+        return self._install(st, n, d)
+
+    def _fit_mesh(self, x, omega):
+        """The fit on the mesh's row shards (JAX ``models/
+        randomized_pca.py:288-333``), fused centering and the default
+        final orthonormalization.  Float32 on the card's data-side Gram
+        route runs K1 on every shard; there is no availability probe: a
+        kernel that cannot be built or launched raises."""
+        from ..parallel.distributed import randomized_pca_fit
+        from ..parallel.mesh import shard_rows_padded
+
+        xs, n = shard_rows_padded(x, self._mesh)
+        fused_ok = (
+            self._mesh.on_accelerator
+            and x.dtype == torch.float32
+            and self._range_finder != "direct"
+            and self._gram_precision in ("auto", "default")
+        )
+        st = randomized_pca_fit(
+            xs, omega,
+            n_components=self._n_components,
+            centering=self._centering,
+            n_oversamples=self._n_oversamples,
+            n_power_iters=self._n_power_iters,
+            normalizer=self._resolve_normalizer(x),
+            finder_precision=self._finder_precision,
+            range_finder=self._range_finder,
+            gram_precision=self._gram_precision,
+            gram_projection=self._gram_projection,
+            fused_sketch=fused_ok,
+        )
+        return self._install(st, n, x.shape[1])
+
+    def _install(self, st, n: int, d: int):
+        """Check the certificate, then install the fit's state; returns
+        U."""
+        k = self._n_components
         u, sigma, vt = st["u"], st["sigma"], st["vt"]
         # Check before mutating: a failed refit must leave a previously
         # fitted model untouched.
@@ -398,8 +443,7 @@ class RandomizedPcaBuilder:
         return self
 
     def mesh(self, mesh) -> "RandomizedPcaBuilder":
-        """Not ported yet: ``build()`` raises ``NotImplementedError`` for
-        a mesh."""
+        """Row-shard fits over a :class:`..parallel.mesh.Mesh`."""
         self._mesh = mesh
         return self
 

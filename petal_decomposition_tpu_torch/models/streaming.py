@@ -50,9 +50,22 @@ FastICA streams in two passes: pass 1 accumulates the moments and gives
 the whitening K; pass 2 writes ``X₁ = K·(X − μ)ᵀ·√n`` into a k×n buffer on
 the device, and ``ica_par`` runs on it as in core.
 
-Not ported yet (``ROADMAP.md`` §1 item 8): multi-host streams
-(``_multihost_prologue``, ``_fold_process_moments``) and mesh placement;
-models refuse a mesh when they are built.
+On a mesh (the model's ``mesh``, :mod:`..parallel.mesh`):
+
+* In one process, ``block_rows`` rounds up to a multiple of the mesh
+  size, every chunk is split into row shards on the mesh's devices, and
+  each chunk's Gram and moments are the sum of its shards' (in mesh
+  order).  Streamed FastICA keeps the whitened buffer as column blocks,
+  one a shard, its width padded only to the next multiple of the mesh
+  size, and iterates on them as the in-core mesh fit does.
+* Across processes (multi-host), every process feeds its own rows and
+  accumulates them on its first device; a first collective agrees on
+  the width, the dtype and one provisional shift (process 0's), and the
+  finalize gathers every process's moments and sums them in process
+  order, so each process solves the same operands to the same state.  A
+  process with no rows, or with another width or dtype, makes every
+  process raise.  ``partial_fit`` is then collective: every process
+  calls it, also with no new rows.  Streamed FastICA takes one process.
 """
 
 from __future__ import annotations
@@ -74,7 +87,13 @@ from ..ops.gram_recovery import (
     randomized_gram_recovery as _randomized_solve,
 )
 from ..ops.linalg import eigh_psd_jit_cert, mdot
-from ..parallel.distributed import _GRAM_GUARD_RMAX, _gram_of
+from ..parallel.distributed import (
+    _GRAM_GUARD_RMAX,
+    _gram_of,
+    all_gather,
+    psum,
+)
+from ..parallel.mesh import Columns
 from ..utils import rng as rng_util
 from ..utils.profiling import FitStats, _sync
 from . import _common
@@ -94,25 +113,36 @@ _DEFAULT_BLOCK_ROWS = 65536
 _POLL_S = 0.1
 
 
-def _accum_step(carry, block, shift, *, precision: str) -> None:
+def _accum_step(carry, block, shift, *, precision: str, mesh=None) -> None:
     """Fold one chunk into ``carry = (g, s, sq)`` in place: the shifted
     Gram and the first and second moments.  ``s`` and ``sq`` are float64;
     ``g`` is float64, or float32 for the ``"default"`` grade on float32
     data on the card, where each chunk's moments are summed in float32
     too and widened (the JAX package's rule, which its TPU cost set: an
     emulated float64 add).  Everywhere else each chunk's moments are
-    summed in float64."""
+    summed in float64.  With a (one-process) ``mesh`` the chunk is split
+    into row shards on its devices and their moments summed in mesh
+    order; without one it is a single shard."""
     g, s, sq = carry
-    xb = block - shift.to(block.dtype)
-    g.add_(_gram_of(xb, precision).to(g.dtype))
     moment_dtype = (
         torch.float32
-        if (precision == "default" and xb.dtype == torch.float32
-            and xb.device.type != "cpu")
+        if (precision == "default" and block.dtype == torch.float32
+            and block.device.type != "cpu")
         else s.dtype
     )
-    s.add_(xb.sum(0, dtype=moment_dtype).to(s.dtype))
-    sq.add_((xb * xb).sum(dtype=moment_dtype).to(sq.dtype))
+
+    def moments(part, shift_d):
+        xb = part - shift_d.to(part.dtype)
+        return (_gram_of(xb, precision), xb.sum(0, dtype=moment_dtype),
+                (xb * xb).sum(dtype=moment_dtype))
+
+    devices = (block.device,) if mesh is None else mesh.devices
+    each = [moments(p.to(dev), shift.to(dev)) for p, dev in
+            zip(torch.tensor_split(block, len(devices)), devices)]
+    gb, sb, sqb = (psum([e[i] for e in each], mesh) for i in range(3))
+    g.add_(gb.to(g.dtype))
+    s.add_(sb.to(s.dtype))
+    sq.add_(sqb.to(sq.dtype))
 
 
 def _finalize_centered(g, s, sq, shift, n: float):
@@ -471,10 +501,17 @@ def _device_prefetch(chunks, device: torch.device):
 
 class _StreamState:
     """Accumulator over the chunks of a stream — one per ``fit_batched``,
-    and kept on the model by ``partial_fit``."""
+    and kept on the model by ``partial_fit``.  On a mesh spanning
+    processes the stream is multi-host: each process accumulates its own
+    rows on its first device, and the finalize folds them
+    (:func:`_fold_process_moments`); on a one-process mesh the chunks are
+    row-sharded (``put_mesh``)."""
 
-    def __init__(self, block_rows: int, device: torch.device):
+    def __init__(self, block_rows: int, device: torch.device, mesh=None):
         self.block_rows = block_rows
+        self.mesh = mesh
+        self.multihost = mesh is not None and mesh.spans_processes
+        self.put_mesh = None if self.multihost else mesh
         self.device = device
         self.carry = None  # (g, s, sq) on the device
         self.shift = None  # (d,) float64 on the device
@@ -486,11 +523,65 @@ class _StreamState:
         self.precision = None  # the resolved Gram grade (first chunk)
 
 
-def _resolve_block_rows(block_rows: int | None) -> int:
+def _resolve_block_rows(block_rows: int | None, mesh=None) -> int:
+    """``block_rows`` (default 65536), rounded up to a multiple of the
+    size of a one-process mesh so every full chunk splits evenly."""
     if block_rows is None:
         block_rows = _DEFAULT_BLOCK_ROWS
     _check_block_rows(block_rows)
+    if mesh is not None and not mesh.spans_processes:
+        block_rows = -(-block_rows // mesh.size) * mesh.size
     return block_rows
+
+
+def _multihost_prologue(st: _StreamState, chunks, centering: bool):
+    """Multi-host stream setup: peek this process's first chunk, agree
+    with every process on the width, the dtype and one provisional shift
+    (process 0's first-chunk mean, so the fold can simply sum the
+    moments), and hand the chunk back.  Collective: a process without a
+    chunk, or a width or dtype that differs, makes every process raise
+    (one that raised alone would leave the others waiting)."""
+    import itertools
+
+    it = iter(chunks)
+    first = next(it, None)
+    mine = ([1, first.shape[1], np.dtype(first.dtype).num]
+            if first is not None else [0, -1, -1])
+    info = all_gather(torch.tensor(mine, dtype=torch.int64), st.mesh)
+    if not bool(info[:, 0].all()):
+        raise InvalidInput(
+            "multi-host streams require at least one block on every "
+            "process (collective shift consensus); processes without: "
+            f"{(info[:, 0] == 0).nonzero().ravel().tolist()}"
+        )
+    if not bool((info[:, 1:] == info[0, 1:]).all()):
+        raise InvalidInput(
+            "inconsistent block widths or dtypes across processes: "
+            + ", ".join(f"proc {i}: d={int(w)}, dtype_code={int(c)}"
+                        for i, (_, w, c) in enumerate(info.tolist()))
+            + f" (this process: {np.dtype(first.dtype).name})"
+        )
+    cand = (first.mean(axis=0, dtype=np.float64) if centering
+            else np.zeros((first.shape[1],), np.float64))
+    shifts = all_gather(torch.from_numpy(cand), st.mesh)
+    st.shift = shifts[0].to(st.device)
+    return itertools.chain([first], it)
+
+
+def _fold_process_moments(g, s, sq, n: int, n_blocks: int, mesh):
+    """Sum every process's ``(g, s, sq, n, n_blocks)``: one gather each,
+    summed in process order, so every process gets the same bits and the
+    solve after it replicates exactly."""
+    def ordered_sum(t):
+        parts = all_gather(t, mesh)
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return total
+
+    counts = all_gather(torch.tensor([n, n_blocks], dtype=torch.int64), mesh)
+    return (ordered_sum(g), ordered_sum(s), ordered_sum(sq),
+            int(counts[:, 0].sum()), int(counts[:, 1].sum()))
 
 
 def _resolve_stream_precision(setting: str, dtype, device_type: str) -> str:
@@ -520,11 +611,12 @@ def _init_stream_carry(st: _StreamState, block, centering: bool,
     )
     f64 = torch.float64
     dev = block.device
-    st.shift = (
-        block.sum(0, dtype=f64) / block.shape[0]
-        if centering
-        else torch.zeros((st.d,), dtype=f64, device=dev)
-    )
+    if st.shift is None:  # a multi-host prologue sets it for every process
+        st.shift = (
+            block.sum(0, dtype=f64) / block.shape[0]
+            if centering
+            else torch.zeros((st.d,), dtype=f64, device=dev)
+        )
     g_dtype = (
         torch.float32
         if (precision == "default" and block.dtype == torch.float32
@@ -552,7 +644,8 @@ def _accumulate_chunks(st: _StreamState, chunks, centering: bool,
                     f"inconsistent block widths: expected {st.d}, "
                     f"got {block.shape[1]}"
                 )
-            _accum_step(st.carry, block, st.shift, precision=st.precision)
+            _accum_step(st.carry, block, st.shift, precision=st.precision,
+                        mesh=st.put_mesh)
             st.n += block.shape[0]
             st.n_blocks += 1
 
@@ -576,10 +669,14 @@ def _check_shift_ratio(m: StreamMoments) -> None:
 
 def _moments_from_state(st: _StreamState, centering: bool) -> StreamMoments:
     g, s, sq = st.carry
+    n, n_blocks = st.n, st.n_blocks
+    if st.multihost:
+        g, s, sq, n, n_blocks = _fold_process_moments(g, s, sq, n, n_blocks,
+                                                      st.mesh)
     dtype = _torch_dtype(st.dtype)
     if centering:
         means64, gc, tv, r = _finalize_centered(g, s, sq, st.shift,
-                                                float(st.n))
+                                                float(n))
         means = means64.to(dtype)
     else:
         means = torch.zeros((st.d,), dtype=dtype, device=g.device)
@@ -587,9 +684,8 @@ def _moments_from_state(st: _StreamState, centering: bool) -> StreamMoments:
         # in place.
         gc, tv = g.to(torch.float64, copy=True), sq.clone()
         r = torch.zeros((), dtype=torch.float64, device=g.device)
-    m = StreamMoments(means, gc, tv, r, n_samples=st.n,
-                      n_blocks=st.n_blocks, dtype=dtype,
-                      precision=st.precision)
+    m = StreamMoments(means, gc, tv, r, n_samples=n, n_blocks=n_blocks,
+                      dtype=dtype, precision=st.precision)
     _check_shift_ratio(m)
     return m
 
@@ -597,14 +693,17 @@ def _moments_from_state(st: _StreamState, centering: bool) -> StreamMoments:
 def accumulate_moments(blocks, *, centering: bool = True,
                        block_rows: int | None = None,
                        precision: str = "highest",
-                       device=None) -> StreamMoments:
+                       device=None, mesh=None) -> StreamMoments:
     """One streamed pass: the (centered) Gram and moments of the whole
-    stream, on ``device`` (the card by default).
+    stream, on ``device`` (the card by default; a mesh's first device).
 
     ``blocks`` is an iterable of 2-D row blocks, or one 2-D array-like
     sliced on the host.  ``precision`` is the Gram grade (``"auto"`` |
     ``"default"`` | ``"high"`` | ``"highest"``), resolved against the
-    stream's dtype at the first chunk.
+    stream's dtype at the first chunk.  With a one-process ``mesh`` every
+    chunk is row-sharded over it; with a mesh spanning processes each
+    process feeds its own blocks and the call is collective (module
+    docstring).
 
     >>> import numpy as np
     >>> x = np.arange(8.0).reshape(4, 2)
@@ -619,13 +718,14 @@ def accumulate_moments(blocks, *, centering: bool = True,
     >>> float(m.total_variance) == float((xc ** 2).sum())
     True
     """
-    device = _common.default_device() if device is None else torch.device(
-        device)
+    device = _common.model_device(mesh, device)
     _common.check_device(device)
-    block_rows = _resolve_block_rows(block_rows)
-    st = _StreamState(block_rows, device)
+    block_rows = _resolve_block_rows(block_rows, mesh)
+    st = _StreamState(block_rows, device, mesh)
     chunks = _uniform_chunks(_iter_input_blocks(blocks, block_rows),
                              block_rows)
+    if st.multihost:
+        chunks = _multihost_prologue(st, chunks, centering)
     _accumulate_chunks(st, chunks, centering, precision)
     if st.carry is None:
         raise InvalidInput("empty stream: no data blocks")
@@ -714,6 +814,7 @@ def _stream_fit(model, blocks, block_rows, solve):
     m = accumulate_moments(
         blocks, centering=model._centering, block_rows=block_rows,
         precision=_stream_gram_precision(model), device=model._device,
+        mesh=model._mesh,
     )
     solve(model, m)
     _install_stats(model, m, t0)
@@ -813,17 +914,22 @@ def partial_fit_step(model, x_block, *, block_rows: int | None,
     Retry-safe: the call's chunks are materialized and validated before
     anything accumulates, so a malformed block or a raising generator
     leaves the stream as it was.  Zero new rows on an existing stream
-    changes nothing (no sub-stream of the generator is drawn).  If the
+    changes nothing (no sub-stream of the generator is drawn) — except on
+    a multi-host stream, where the call is collective: it joins the fold
+    and the solve, drawing a sub-stream on every process alike.  If the
     solve fails, the rows stay in the stream and the model is unchanged;
     the next successful call includes them."""
     t0 = time.perf_counter()
     _check_stream_solver(model)
     st = model._stream
+    mesh = model._mesh
     if st is None:
         _common.check_device(model._device)
-        st = _StreamState(_resolve_block_rows(block_rows), model._device)
+        st = _StreamState(_resolve_block_rows(block_rows, mesh),
+                          model._device, mesh)
         model._stream = st
-    elif block_rows is not None and block_rows != st.block_rows:
+    elif (block_rows is not None
+          and _resolve_block_rows(block_rows, mesh) != st.block_rows):
         raise InvalidInput(
             f"block_rows is fixed at {st.block_rows} by the first "
             "partial_fit call"
@@ -832,8 +938,10 @@ def partial_fit_step(model, x_block, *, block_rows: int | None,
         _iter_input_blocks(x_block, st.block_rows), st.block_rows,
         dtype_hint=st.dtype,
     ))
-    if not chunks and st.carry is not None:
+    if not chunks and st.carry is not None and not st.multihost:
         return
+    if st.multihost and st.carry is None:
+        chunks = list(_multihost_prologue(st, chunks, model._centering))
     _accumulate_chunks(st, chunks, model._centering,
                        _stream_gram_precision(model))
     if st.carry is None:
@@ -890,28 +998,27 @@ def _hbm_bytes_limit(device: torch.device) -> int | None:
 
 
 def _check_ica_buffer_budget(k: int, n: int, dtype: torch.dtype,
-                             device: torch.device) -> None:
+                             device: torch.device,
+                             n_devices: int = 1) -> None:
     """The fit keeps X₁ (k×n) on the device plus ~3 k×n temporaries of
-    the iteration (W·X₁, g(W·X₁), and the update's read of X₁ᵀ)."""
+    the iteration (W·X₁, g(W·X₁), and the update's read of X₁ᵀ).  On a
+    mesh the buffer is split by columns, so each device holds its share
+    of ``n_devices``."""
     limit = _hbm_bytes_limit(device)
     if limit is None:
         return
     itemsize = torch.empty((), dtype=dtype).element_size()
-    need = 4 * k * n * itemsize
+    need = 4 * k * n * itemsize // n_devices
     if need > limit:
+        per_dev = (f" per device (mesh of {n_devices})" if n_devices > 1
+                   else "")
         raise InvalidInput(
             f"streamed FastICA keeps the whitened k x n matrix on "
             f"device: {k} x {n} {str(dtype)[6:]} needs "
-            f"~{need / 2**30:.1f} GiB (4 k n itemsize) but the device "
-            f"reports {limit / 2**30:.1f} GiB; reduce n_components or "
-            f"the sample count"
+            f"~{need / 2**30:.1f} GiB{per_dev} (4 k n itemsize) but the "
+            f"device reports {limit / 2**30:.1f} GiB; reduce n_components "
+            f"or the sample count, or shard over a larger mesh"
         )
-
-
-def _fill_whitened(buf, block, kmat, means, offset: int, scale: float):
-    """Write ``K·(block − μ)ᵀ·scale`` into ``buf[:, offset:]`` in place."""
-    y = mdot(kmat, (block - means).mT) * scale
-    buf[:, offset : offset + block.shape[0]] = y
 
 
 def _fill_transposed(buf, block, offset: int):
@@ -958,6 +1065,13 @@ def stream_fit_fast_ica(model, data, *, block_rows: int | None = None):
     accumulation roundoff."""
     from . import fast_ica as fi
 
+    mesh = model._mesh
+    if mesh is not None and mesh.spans_processes:
+        raise InvalidInput(
+            "streamed FastICA supports one-process meshes only (the "
+            "whitened k x n buffer lives on one process's devices; a "
+            "multi-host column split would need per-process column feeds)"
+        )
     if model._whiten and model._whiten_solver == "svd":
         raise InvalidInput(
             "streamed FastICA whitens from the accumulated Gram "
@@ -967,13 +1081,19 @@ def stream_fit_fast_ica(model, data, *, block_rows: int | None = None):
         )
     t0 = time.perf_counter()
     device = model._device
-    block_rows = _resolve_block_rows(block_rows)
+    block_rows = _resolve_block_rows(block_rows, mesh)
     factory = _reiterable_factory(data, block_rows)
     if not model._whiten:
+        if mesh is not None:
+            raise InvalidInput(
+                "whiten=False streamed fits are single-device (the "
+                "square d x d unmixing leaves nothing to shard over "
+                "sources); drop the mesh"
+            )
         return _stream_fit_no_whiten(model, factory, block_rows, t0, fi)
 
     m = accumulate_moments(factory(), centering=True,
-                           block_rows=block_rows, device=device)
+                           block_rows=block_rows, device=device, mesh=mesh)
     n, d = m.n_samples, int(m.gram.shape[0])
     k = min(n, d)
     if model._n_components is not None:
@@ -992,38 +1112,69 @@ def stream_fit_fast_ica(model, data, *, block_rows: int | None = None):
     _linalg.check_certificate(off, m.dtype, d, "eigendecomposition")
     sub = rng_util.split(model._gen)
     w_init = rng_util.normal(sub, (k, k), m.dtype, device)
-    _check_ica_buffer_budget(k, n, m.dtype, device)
-    buf = torch.empty((k, n), dtype=m.dtype, device=device)
-    scale = float(np.sqrt(n))
-
-    def fill_chunk(block, offset):
-        _fill_whitened(buf, block, kmat, m.means, offset, scale)
-
-    _fill_pass(factory, block_rows, n, d, m.dtype, device, fill_chunk)
-    w, n_iter = _ica_iterate(model, buf, w_init, fi)
+    w, n_iter, buf_cols = _ica_fill_and_iterate(
+        model, factory, block_rows, m, k, kmat, w_init, mesh, fi)
     model._components = mdot(w, kmat)
     model._means = m.means
     model._n_iter = n_iter
     stats = _install_stats(model, m, t0)
     stats.n_iter = n_iter
-    stats.extra["whitened_buffer_cols"] = n
+    stats.extra["whitened_buffer_cols"] = buf_cols
     return model
 
 
-def _ica_iterate(model, buf, w_init, fi):
-    """``ica_par`` on the filled buffer at the model's settings, resolved
-    for the buffer's device, with the decorrelation checked: ``(w,
-    n_iter)``."""
-    device_type = buf.device.type
-    w, n_iter = fi.ica_par(
-        buf, model._tol, model._max_iter, w_init, fun=model._fun,
+def _ica_fill_and_iterate(model, factory, block_rows: int, m, k: int,
+                          kmat, w_init, mesh, fi):
+    """The whitened pass and the iteration.  The buffer K·(X − 1μᵀ)ᵀ·√n
+    is one k × (n_pad / size) column block on each device: the model's
+    one device, or each of a one-process mesh's (each holds its share).
+    n_pad is n rounded up past the last full chunk to a multiple of the
+    device count (at most size − 1 zero columns, which the iteration's
+    ``n_valid`` masks; none on one device), and ``_ica_par_core`` runs on
+    the blocks with its sums reduced over them, as the in-core mesh fit
+    does.  Returns ``(w, n_iter, n_pad)``."""
+    n, d = m.n_samples, int(m.gram.shape[0])
+    devices = (model._device,) if mesh is None else mesh.devices
+    size = len(devices)
+    full = (n // block_rows) * block_rows
+    tail = n - full
+    n_pad = full + (-(-tail // size) * size if tail else 0)
+    _check_ica_buffer_budget(k, n_pad, m.dtype, devices[0], size)
+    width = n_pad // size
+    bufs = [torch.zeros((k, width), dtype=m.dtype, device=dev)
+            for dev in devices]
+    scale = float(np.sqrt(n))
+
+    def fill_chunk(block, offset):
+        y = mdot(kmat, (block - m.means).mT) * scale
+        end = offset + block.shape[0]
+        for i, buf in enumerate(bufs):
+            lo, hi = max(offset, i * width), min(end, (i + 1) * width)
+            if lo < hi:
+                buf[:, lo - i * width:hi - i * width] = (
+                    y[:, lo - offset:hi - offset].to(buf.device))
+
+    _fill_pass(factory, block_rows, n, d, m.dtype, devices[0], fill_chunk)
+    w, n_iter = _ica_iterate(model, Columns(bufs, mesh, n_pad), n, w_init,
+                             fi)
+    return w, n_iter, n_pad
+
+
+def _ica_iterate(model, xs: Columns, n_valid: int, w_init, fi):
+    """``_ica_par_core`` on the filled buffer's column blocks (the tensor
+    itself without a mesh) at the model's settings, resolved for the
+    buffer's device, with the decorrelation checked: ``(w, n_iter)``."""
+    device_type = xs.parts[0].device.type
+    w, _, n_iter = fi._ica_par_core(
+        xs.value(), fi._rounded(model._tol, _common.real_dtype(xs.dtype)),
+        int(model._max_iter), w_init, model._fun, n_valid=n_valid,
         decorrelation=fi.resolve_decorrelation(model._decorrelation,
                                                device_type),
         precision=fi.resolve_iteration_precision(
-            model._iteration_precision, buf.dtype, device_type),
+            model._iteration_precision, xs.dtype, device_type),
     )
     fi.check_decorrelation(w)
-    return w, n_iter
+    return w, int(n_iter)
 
 
 def _stream_fit_no_whiten(model, factory, block_rows: int, t0, fi):
@@ -1057,7 +1208,7 @@ def _stream_fit_no_whiten(model, factory, block_rows: int, t0, fi):
     _fill_pass(factory, block_rows, n, d, tdtype, device, fill_chunk)
     sub = rng_util.split(model._gen)
     w_init = rng_util.normal(sub, (d, d), tdtype, device)
-    w, n_iter = _ica_iterate(model, buf, w_init, fi)
+    w, n_iter = _ica_iterate(model, Columns([buf], None, n), n, w_init, fi)
     model._components = w.contiguous()  # as Pca's
     model._means = torch.zeros((d,), dtype=tdtype, device=device)
     model._n_iter = n_iter

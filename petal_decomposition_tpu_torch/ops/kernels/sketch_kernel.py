@@ -7,7 +7,10 @@ split, ``xh·wh + xl·wh + xh·wl`` with float32 accumulation.  On a CUDA
 tensor the wrapper launches the hand-written Hopper kernel
 ``csrc/sketch_moments.cu`` (TMA-fed ``wgmma``); on a CPU tensor it runs
 :func:`_sketch_moments_plain`, the same split product as three float32
-matmuls.  ``launches`` counts kernel launches.
+matmuls.  ``launches`` counts kernel launches.  On a mesh,
+:func:`fused_sketch_moments_on` launches K1 on every row shard and
+reduces the moments over the shards (the JAX ``shard_map`` + ``psum``);
+it has no availability probe and no kernel-free fallback.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 from ...utils import debugging
 from . import _build
 
-__all__ = ["fused_sketch_moments", "supports", "build", "launches"]
+__all__ = ["fused_sketch_moments", "fused_sketch_moments_on", "supports",
+           "build", "launches"]
 
 # Smallest row count the fused pass is used for, as in the JAX package
 # (four of its 1024-row blocks): below it the saved pass is noise.
@@ -133,3 +137,33 @@ def fused_sketch_moments(x: torch.Tensor, w: torch.Tensor):
     debugging.check_kernel_outputs("fused_sketch_moments (K1)", y, colsum,
                                    sqnorm)
     return y, colsum, sqnorm[0]
+
+
+def fused_sketch_moments_on(xs, w: torch.Tensor):
+    """:func:`fused_sketch_moments` on every row shard of ``xs``
+    (``parallel.mesh.Rows``): ``(Y, colsum, sqnorm)`` with Y row-sharded
+    as ``xs`` and the two moments reduced over the shards of its mesh
+    (``parallel.distributed.psum``).  Zero-padded rows add nothing to any
+    output, so padding needs no mask here.  Callers gate on
+    :func:`supports` at the rows of one shard.
+
+    >>> from petal_decomposition_tpu_torch.parallel.mesh import (
+    ...     make_mesh, shard_rows_padded)
+    >>> g = torch.Generator().manual_seed(0)
+    >>> x = torch.randn(8200, 16, generator=g)
+    >>> w = torch.randn(16, 4, generator=g)
+    >>> xs, n = shard_rows_padded(x, make_mesh(2, devices=["cpu"] * 2))
+    >>> ys, cs, sq = fused_sketch_moments_on(xs, w)
+    >>> len(ys.shards), tuple(ys.shape)
+    (2, (8200, 4))
+    >>> bool(torch.allclose(cs, x.sum(0), rtol=1e-5, atol=1e-3))
+    True
+    """
+    from ...parallel.distributed import psum
+    from ...parallel.mesh import Rows
+
+    outs = [fused_sketch_moments(s, wd)
+            for s, (wd,) in zip(xs.shards, xs.on_devices(w))]
+    ys = Rows([o[0] for o in outs], xs.mesh, xs.n_valid, xs.rows_per_shard)
+    return (ys, psum([o[1] for o in outs], xs.mesh),
+            psum([o[2] for o in outs], xs.mesh))

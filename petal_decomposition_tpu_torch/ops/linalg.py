@@ -307,29 +307,34 @@ def cholesky_qr2(a: torch.Tensor) -> torch.Tensor:
     """
 
     def one_round(x):
-        g = mdot(x.mH, x)
-        k = g.shape[0]
-        eye = torch.eye(k, dtype=g.dtype, device=g.device)
-        eps = float(torch.finfo(g.dtype).eps)
-        trace = torch.diagonal(g).real.sum()
-        # Tiny diagonal lift for exactly rank-deficient panels, floored
-        # so it cannot underflow to 0 on an all-zero panel.
-        lift = torch.clamp(eps * trace / k, min=1e-30)
-        low, info = torch.linalg.cholesky_ex(g + lift * eye)
-        # Escalating shift (shifted CholeskyQR, Fukaya et al.) for Grams
-        # whose rounding makes G + lift indefinite; engaged only when
-        # the first factorization failed, and selected without a host
-        # sync, as the JAX package selects it in-graph.
-        u = max(eps, 2.0 ** -48)
-        big = torch.clamp((u ** 0.5) * trace, min=1e-30)
-        low_big, _ = torch.linalg.cholesky_ex(g + big * eye)
-        bad = (info != 0) | torch.isnan(low).any()
-        low = torch.where(bad, low_big, low)
-        # Q = X·L⁻ᴴ through a k×k triangular inverse and one matmul.
-        linv = torch.linalg.solve_triangular(low, eye, upper=False)
-        return mdot(x, linv.mH)
+        return mdot(x, cholqr_right_factor(mdot(x.mH, x)))
 
     return one_round(one_round(a))
+
+
+def cholqr_right_factor(g: torch.Tensor) -> torch.Tensor:
+    """``L⁻ᴴ`` for the Gram ``g = XᴴX`` of a CholeskyQR round, so that
+    ``Q = X·L⁻ᴴ`` (the row-sharded fits apply it to each shard)."""
+    k = g.shape[0]
+    eye = torch.eye(k, dtype=g.dtype, device=g.device)
+    eps = float(torch.finfo(g.dtype).eps)
+    trace = torch.diagonal(g).real.sum()
+    # Tiny diagonal lift for exactly rank-deficient panels, floored
+    # so it cannot underflow to 0 on an all-zero panel.
+    lift = torch.clamp(eps * trace / k, min=1e-30)
+    low, info = torch.linalg.cholesky_ex(g + lift * eye)
+    # Escalating shift (shifted CholeskyQR, Fukaya et al.) for Grams
+    # whose rounding makes G + lift indefinite; engaged only when
+    # the first factorization failed, and selected without a host
+    # sync, as the JAX package selects it in-graph.
+    u = max(eps, 2.0 ** -48)
+    big = torch.clamp((u ** 0.5) * trace, min=1e-30)
+    low_big, _ = torch.linalg.cholesky_ex(g + big * eye)
+    bad = (info != 0) | torch.isnan(low).any()
+    low = torch.where(bad, low_big, low)
+    # Q = X·L⁻ᴴ through a k×k triangular inverse and one matmul.
+    linv = torch.linalg.solve_triangular(low, eye, upper=False)
+    return linv.mH
 
 
 def _lu_pl_elimination(a: torch.Tensor) -> torch.Tensor:
@@ -398,6 +403,17 @@ def lu_pl(a: torch.Tensor) -> torch.Tensor:
     return pl
 
 
+def flip_signs(pivots: torch.Tensor) -> torch.Tensor:
+    """``svd_flip``'s sign of each column from its pivot entry: −1 where
+    the real part is negative (or, when it is exactly zero, the
+    imaginary part), else +1, in the pivots' dtype."""
+    re = pivots.real
+    im = pivots.imag if pivots.is_complex() else torch.zeros_like(re)
+    # Rust f64::signum: +1 for +0.0; flip only on a negative pivot.
+    basis = torch.where(re == 0, im, re)
+    return torch.where(basis < 0, -1.0, 1.0).to(pivots.dtype)
+
+
 def svd_flip(u: torch.Tensor, vt: torch.Tensor):
     """Deterministic SVD signs (exact port of the reference convention,
     pca.rs:815-850): for each column of ``u`` find the entry of largest
@@ -414,12 +430,7 @@ def svd_flip(u: torch.Tensor, vt: torch.Tensor):
     k = min(u.shape[1], vt.shape[0])
     ucols = u[:, :k]
     idx = torch.argmax(ucols.abs(), dim=0)  # first max, like the ref scan
-    pivots = torch.gather(ucols, 0, idx[None, :])[0]
-    re = pivots.real
-    im = pivots.imag if pivots.is_complex() else torch.zeros_like(re)
-    # Rust f64::signum: +1 for +0.0; flip only on a negative pivot.
-    basis = torch.where(re == 0, im, re)
-    signs = torch.where(basis < 0, -1.0, 1.0).to(u.dtype)
+    signs = flip_signs(torch.gather(ucols, 0, idx[None, :])[0])
     u = u.clone()
     vt = vt.clone()
     u[:, :k] *= signs[None, :]

@@ -8,7 +8,10 @@ Every model goes to one ``.npz``: its tensors as numpy arrays
 (``.cpu().numpy()``), its scalars and knobs in a JSON header under
 ``__meta__`` with ``__class__`` and ``__format__`` (version 1; a newer
 version is refused).  ``last_fit_stats_``, ``_stream`` (a ``partial_fit``
-accumulator) and ``_mixing_cache`` are not state and are skipped.  The
+accumulator) and ``_mixing_cache`` are not state and are skipped; a
+model's ``_mesh`` (process-local devices and process group) is written
+as null, as the JAX package writes it, so a loaded model has none and
+takes a mesh again through its builder's ``.mesh(...)``.  The
 model's device is written as a string and never trusted on load:
 :func:`load` / :func:`from_bytes` place the tensors on their ``device``
 argument, which resolves as a model built without ``device=`` does (the
@@ -25,7 +28,7 @@ Cross-loading between the two packages:
   generator deterministically: the words, first word highest, are one
   integer for :func:`..utils.rng.generator_from_seed`.  The draws then
   differ from the JAX model's, whose threefry stream torch cannot
-  reproduce.  Fields the port does not have (``_mesh``) are dropped.
+  reproduce.  A JAX archive's ``_mesh`` is null, as a port archive's is.
 * A port archive loads into the JAX package unchanged: it holds only
   JSON types and arrays, under the attribute names the two packages
   share, so it transforms identically there.  Its ``_key`` is
@@ -63,7 +66,9 @@ def _model_state(model) -> tuple[dict, dict]:
     for name, value in vars(model).items():
         if name in _SKIPPED:
             continue
-        if value is None or isinstance(value, (bool, int, float, str)):
+        if name == "_mesh":
+            meta[name] = None
+        elif value is None or isinstance(value, (bool, int, float, str)):
             meta[name] = value
         elif isinstance(value, torch.device):
             meta[name] = str(value)

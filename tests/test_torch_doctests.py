@@ -15,6 +15,9 @@ _MODULES = [
     "petal_decomposition_tpu_torch.ops.gram_recovery",
     "petal_decomposition_tpu_torch.ops.linalg",
     "petal_decomposition_tpu_torch.ops.splitmm",
+    "petal_decomposition_tpu_torch.ops.kernels.sketch_kernel",
+    "petal_decomposition_tpu_torch.parallel.mesh",
+    "petal_decomposition_tpu_torch.parallel.multihost",
     "petal_decomposition_tpu_torch.utils.debugging",
     "petal_decomposition_tpu_torch.utils.native",
     "petal_decomposition_tpu_torch.utils.profiling",

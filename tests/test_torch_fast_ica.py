@@ -464,10 +464,23 @@ def test_default_device_is_the_card(monkeypatch, make):
 
 
 def test_unported_surfaces_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pt.FastIcaBuilder().mesh(object()).build()
-    # The streamed surfaces are ported (tests/test_torch_streaming_ica.py).
+    """Meshes are ported (tests/test_torch_sharding.py): a mesh fit runs
+    and matches the unsharded eigh-whitened fit.  A non-mesh object
+    builds and fails at fit with AttributeError, as in the JAX
+    package."""
+    from petal_decomposition_tpu_torch.parallel import make_mesh
+
     x, _ = _two_sources(50, 3, [[1.0, 0.2], [0.4, 1.0]])
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    meshed = pt.FastIcaBuilder().seed(1).mesh(mesh).build().fit(x)
+    one = pt.FastIca(seed=1, whiten_solver="eigh", device="cpu").fit(x)
+    assert meshed.n_iter_ == one.n_iter_
+    assert torch.allclose(meshed.components_, one.components_, atol=1e-9)
+    for build in (pt.FastIcaBuilder().mesh(object()).build,
+                  jpd.FastIcaBuilder().mesh(object()).build):
+        with pytest.raises(AttributeError, match="devices"):
+            build().fit(x)
+    # The streamed surfaces are ported (tests/test_torch_streaming_ica.py).
     m = pt.FastIca(seed=1, device="cpu").fit_batched([x])
     assert tuple(m.transform_batched([x]).shape) == (50, 2)
 

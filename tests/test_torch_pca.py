@@ -284,8 +284,21 @@ def test_failed_refit_leaves_the_model_untouched(monkeypatch):
 
 
 def test_unported_surfaces_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pt.PcaBuilder(2).mesh(object()).build()
+    """Meshes are ported (tests/test_torch_sharding.py): a mesh fit runs
+    and matches the unsharded one.  A non-mesh object builds and fails at
+    fit with AttributeError, as in the JAX package."""
+    from petal_decomposition_tpu_torch.parallel import make_mesh
+
+    x = np.random.default_rng(3).standard_normal((21, 4))
+    meshed = pt.PcaBuilder(2).mesh(make_mesh(4, devices=["cpu"] * 4))
+    meshed = meshed.build().fit(x)
+    one = _port(2).fit(x)
+    assert torch.allclose(meshed.singular_values_, one.singular_values_,
+                          rtol=1e-10)
+    for build in (pt.PcaBuilder(2).mesh(object()).build,
+                  jpd.PcaBuilder(2).mesh(object()).build):
+        with pytest.raises(AttributeError, match="devices"):
+            build().fit(x)
     # The streamed surfaces are ported (tests/test_torch_streaming.py).
     m = _port(2)
     m.fit_batched([GOLDEN])

@@ -265,11 +265,23 @@ def test_errors_match_jax():
                 {"power_iteration_normalizer": "x"}):
         with pytest.raises(ValueError):
             pt.RandomizedPca(2, seed=0, device="cpu", **bad)
-    # A mesh is valid in the JAX package and not ported yet.
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pt.RandomizedPca(2, seed=0, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pt.RandomizedPcaBuilder(2).mesh(object()).build()
+    # A mesh is ported (tests/test_torch_sharding.py): a mesh fit runs.
+    # A non-mesh object builds and fails at fit with AttributeError, as
+    # in the JAX package.
+    from petal_decomposition_tpu_torch.parallel import make_mesh
+
+    x = _data(40, 6, np.float64)
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    meshed = pt.RandomizedPca(2, seed=0, mesh=mesh).fit(x)
+    assert tuple(meshed.components_.shape) == (2, 6)
+    assert meshed.device == torch.device("cpu")
+    for build in (lambda: pt.RandomizedPca(2, seed=0, device="cpu",
+                                           mesh=object()),
+                  pt.RandomizedPcaBuilder(2).mesh(object()).build,
+                  lambda: JaxRandomizedPca(2, seed=0, mesh=object()),
+                  JaxBuilder(2).mesh(object()).build):
+        with pytest.raises(AttributeError, match="devices"):
+            build().fit(x)
 
 
 def test_linalg_error_leaves_fitted_state(monkeypatch):

@@ -93,18 +93,29 @@ def test_unfitted_model_roundtrip():
 
 
 def test_mesh_not_serialized():
-    """A JAX archive of a mesh fit loads without its mesh (the port has
-    none yet) and transforms as the JAX model does."""
+    """A mesh is never saved, as in the JAX package: a JAX archive of a
+    mesh fit and a port one each load with ``_mesh`` None and transform
+    as the fitted model does; the port's archive holds no mesh."""
     import jax
 
     from petal_decomposition_tpu.parallel import make_mesh
+    from petal_decomposition_tpu_torch.parallel import make_mesh as pmesh
 
     mesh = make_mesh(min(8, len(jax.devices())))
     x = np.random.default_rng(2).standard_normal((64, 6))
     jm = jpd.PcaBuilder(2).mesh(mesh).build().fit(x)
     loaded = _load(jax_serialize.to_bytes(jm))
-    assert not hasattr(loaded, "_mesh")
+    assert loaded._mesh is None
     assert _rel(loaded.transform(x), jm.transform(x)) < BAND
+    pm = pt.PcaBuilder(2).mesh(pmesh(8, devices=[CPU] * 8)).build().fit(x)
+    data = to_bytes(pm)
+    with np.load(io.BytesIO(data)) as npz:
+        meta = json.loads(bytes(npz["__meta__"].tobytes()).decode("utf-8"))
+        assert meta["_mesh"] is None
+        assert not any("mesh" in name for name in npz.files)
+    loaded = _load(data)
+    assert loaded._mesh is None
+    assert torch.equal(loaded.transform(x), pm.transform(x))
 
 
 def _rewrite(data: bytes, edit) -> bytes:

@@ -788,9 +788,15 @@ def test_pinned_ring_new_block_waits_for_compute_reads(cuda_device,
     every slot) or a chunk larger than the first (whose slot grows).  The
     producer is fast (its pinned buffers cached, as after a first fit),
     so only the staging copy lies between the new block's allocation and
-    its copy, and the block is the temporary's memory (checked).  The
-    copy must wait for those Grams: they, and every chunk, equal the
-    synchronous result bitwise."""
+    its copy, and the block is the temporary's memory (checked).  That is
+    certain by construction: the producer frees the temporary only once
+    the consumer has read every earlier chunk and waits for the next, so
+    no other allocation (the consumer's float64 sums take one per chunk)
+    can split the freed block before the slot takes it.  The copy must
+    wait for those Grams: they, and every chunk, equal the synchronous
+    result bitwise."""
+    import threading
+
     rows, d, reps = 65536, 4096, 6
     g = torch.Generator(device=cuda_device)
     g.manual_seed(7)
@@ -819,18 +825,26 @@ def test_pinned_ring_new_block_waits_for_compute_reads(cuda_device,
     pinned = [torch.empty((rows, d), pin_memory=True) for _ in range(3)]
     del pinned
     got_grams = []
+    trigger = 0 if when == "first_chunk" else 1
+    consumer_idle = threading.Event()
 
     def producer():
         for i, c in enumerate(chunks):
-            if i == (0 if when == "first_chunk" else 1):
+            if i == trigger:
+                # The consumer has read chunks 0..i-1 and now only waits.
+                assert consumer_idle.wait(timeout=120)
                 got_grams.append(grams(big))
             yield c
 
     monkeypatch.setenv("PETAL_STREAM_PREFETCH", "2")
     sums, block_ptrs = [], []
+    if trigger == 0:
+        consumer_idle.set()
     for block in pst._device_prefetch(producer(), cuda_device):
         block_ptrs.append(block.data_ptr())
         sums.append(col_sums(block))
+        if len(sums) == trigger:
+            consumer_idle.set()
     assert temp_ptrs[-1] in block_ptrs, "the race was not set up"
     assert torch.equal(got_grams[0].cpu(), want_grams)
     assert len(sums) == len(chunks)
