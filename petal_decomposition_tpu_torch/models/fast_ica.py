@@ -49,6 +49,7 @@ from ..ops import splitmm
 from ..ops.linalg import mdot
 from ..parallel.mesh import Columns
 from ..utils import rng as rng_util
+from ..utils.profiling import span
 from . import _common
 
 __all__ = [
@@ -158,7 +159,9 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
 def _update(w, gx, gsum, decorr, p_inv: float, pad_g0: float):
     g_wtx = (gsum - pad_g0) * p_inv
     # W1 = symdecorr(G·Xᵀ/p − diag(g′)·W)  (ref: ica.rs:333-343)
-    w1 = decorr(gx * p_inv - g_wtx[:, None] * w)
+    w_new = gx * p_inv - g_wtx[:, None] * w
+    with span("petal.ica.decorrelate"):
+        w1 = decorr(w_new)
     # lim = max_i ||row_i(W1)·col_i(W)| − 1|  (ref: ica.rs:344-354)
     lim = ((w1 * w.mT).sum(1).abs() - 1.0).abs().max()
     return w1, lim
@@ -168,15 +171,16 @@ def _sums(w, xs, part):
     """``(G·Xᵀ, g′ row sums)`` of one step: ``part(w, xs)`` on one
     tensor, or on every column block of a mesh's ``Columns`` with the
     two reduced together (one ``psum`` a step)."""
-    if not isinstance(xs, Columns):
-        return part(w, xs)
+    with span("petal.ica.sums"):
+        if not isinstance(xs, Columns):
+            return part(w, xs)
 
-    def both(block, wd):
-        gx, gsum = part(wd, block)
-        return torch.cat([gx, gsum[:, None]], dim=1)
+        def both(block, wd):
+            gx, gsum = part(wd, block)
+            return torch.cat([gx, gsum[:, None]], dim=1)
 
-    out = xs.psum(both, w)
-    return out[:, :-1], out[:, -1]
+        out = xs.psum(both, w)
+        return out[:, :-1], out[:, -1]
 
 
 def _step(w, xs, fun: str, decorr, p_inv: float, pad_g0: float = 0.0):
@@ -209,14 +213,17 @@ def _step_ds(w, xh, xl, fun: str, decorr, p_inv: float,
 def _iterate(body, w, tol: float, budget: int, lim_dtype):
     """``lax.while_loop`` with the cond ``(lim >= tol) & (it < budget)``
     and ``lim`` starting at inf: ``(w, lim, it)``.  The stop test reads
-    ``lim`` on the host once a step."""
-    lim = torch.full((), math.inf, dtype=lim_dtype, device=w.device)
-    lim_host, it = math.inf, 0
-    while lim_host >= tol and it < budget:
-        w, lim = body(w)
-        lim_host = float(lim)
-        it += 1
-    return w, lim, it
+    ``lim`` on the host once a step (the ``petal.ica.lim_read`` span: the
+    host blocked until the card has run the step)."""
+    with span("petal.ica.iterate"):
+        lim = torch.full((), math.inf, dtype=lim_dtype, device=w.device)
+        lim_host, it = math.inf, 0
+        while lim_host >= tol and it < budget:
+            w, lim = body(w)
+            with span("petal.ica.lim_read"):
+                lim_host = float(lim)
+            it += 1
+        return w, lim, it
 
 
 def _ica_par_core(x, tol: float, max_iter: int, w_init, fun: str,
@@ -639,13 +646,15 @@ class FastIca:
         xt = (x - means).mT  # (d, n) — ref: ica.rs:178-188
         solver = resolve_whiten_solver(self._whiten_solver, x.dtype,
                                        x.device.type)
-        kmat, _sigma, whiten_off = _whitening_matrix(xt, k, solver)
-        if solver == "eigh":
-            _linalg.check_certificate(whiten_off, _common.real_dtype(x.dtype),
-                                      d, "eigendecomposition")
-        # X₁ = K·Xᵀ·√n (ref: ica.rs:204-208): unit-variance rows under
-        # the 1/n inner product.
-        x1 = mdot(kmat, xt) * math.sqrt(n)
+        with span("petal.ica.whiten"):
+            kmat, _sigma, whiten_off = _whitening_matrix(xt, k, solver)
+            if solver == "eigh":
+                _linalg.check_certificate(
+                    whiten_off, _common.real_dtype(x.dtype), d,
+                    "eigendecomposition")
+            # X₁ = K·Xᵀ·√n (ref: ica.rs:204-208): unit-variance rows under
+            # the 1/n inner product.
+            x1 = mdot(kmat, xt) * math.sqrt(n)
         sub = rng_util.split(self._gen)
         w_init = rng_util.normal(sub, (k, k), x.dtype, x.device)
         w, n_iter = ica_par(x1, self._tol, self._max_iter, w_init,

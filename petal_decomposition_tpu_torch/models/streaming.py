@@ -25,6 +25,15 @@ memory.  ``PETAL_STREAM_PREFETCH`` (default 2)
 is the number of chunks staged ahead; 0 copies synchronously on the
 caller's thread.  On the CPU the same worker hands over plain tensors.
 
+What the feed spent is counted on every streamed fit, in
+``last_fit_stats_.extra`` (:class:`_FeedCounters`): ``feed_wait_s``,
+the caller's wait for the next chunk; ``host_copy_s``, the copies into
+the staging buffers (at depth 0, the synchronous copies to the device);
+``staged_bytes``.  Under a ``torch.profiler`` the same boundaries are
+spans: ``petal.stream.feed_wait``, ``petal.stream.accum`` and
+``petal.stream.solve`` on the caller's thread, ``petal.stream.host_copy``
+and ``petal.stream.slot_wait`` on the worker's.
+
 Numerical contract (single pass, shifted accumulation), as the JAX
 package's:
 
@@ -95,7 +104,7 @@ from ..parallel.distributed import (
 )
 from ..parallel.mesh import Columns
 from ..utils import rng as rng_util
-from ..utils.profiling import FitStats, _sync
+from ..utils.profiling import record_fit, span
 from . import _common
 
 __all__ = [
@@ -297,6 +306,38 @@ def _host_tensor(chunk: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(chunk))
 
 
+class _FeedCounters:
+    """What one streamed call's feed spent, over its chunks (both passes
+    of a streamed FastICA), each timed where its span opens.  The caller's
+    thread adds ``feed_wait_s``, the thread that stages a chunk
+    ``host_copy_s`` and ``staged_bytes``."""
+
+    def __init__(self):
+        self.feed_wait_s = 0.0
+        self.host_copy_s = 0.0
+        self.staged_bytes = 0
+
+    @contextlib.contextmanager
+    def waiting(self):
+        t0 = time.perf_counter()
+        with span("petal.stream.feed_wait"):
+            yield
+        self.feed_wait_s += time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def copying(self, nbytes: int):
+        t0 = time.perf_counter()
+        with span("petal.stream.host_copy"):
+            yield
+        self.host_copy_s += time.perf_counter() - t0
+        self.staged_bytes += nbytes
+
+    def record(self, extra: dict) -> None:
+        extra["feed_wait_s"] = self.feed_wait_s
+        extra["host_copy_s"] = self.host_copy_s
+        extra["staged_bytes"] = self.staged_bytes
+
+
 class _Slot:
     """One pinned staging buffer, its device block, and the events of the
     last copy out of the one and of the last work that read the other."""
@@ -315,8 +356,9 @@ class _PinnedRing:
     whose current stream is the compute stream."""
 
     def __init__(self, device: torch.device, n_slots: int,
-                 stop: threading.Event):
+                 stop: threading.Event, feed: _FeedCounters):
         self.device = device
+        self.feed = feed
         self.compute = torch.cuda.current_stream(device)
         self.copy_stream = torch.cuda.Stream(device)
         self.stop = stop
@@ -340,7 +382,8 @@ class _PinnedRing:
     def load(self, chunk: np.ndarray):
         """Stage ``chunk`` and start its copy to the card: ``(slot, rows)``,
         or None once the consumer has stopped."""
-        slot = self._free_slot()
+        with span("petal.stream.slot_wait"):
+            slot = self._free_slot()
         if slot is None:
             return None
         n, d = chunk.shape
@@ -365,9 +408,11 @@ class _PinnedRing:
         else:
             # The last copy out of this staging buffer must be done
             # before the host writes it again.
-            slot.copied.synchronize()
+            with span("petal.stream.slot_wait"):
+                slot.copied.synchronize()
         stage = slot.host[:n]
-        stage.copy_(_host_tensor(chunk))
+        with self.feed.copying(chunk.nbytes):
+            stage.copy_(_host_tensor(chunk))
         with self.lock:
             if self.closed or self.stop.is_set():
                 return None
@@ -414,9 +459,11 @@ def _prefetch_worker(chunks, stage, offer) -> None:
 _DONE = object()
 
 
-def _device_prefetch(chunks, device: torch.device):
+def _device_prefetch(chunks, device: torch.device,
+                     feed: _FeedCounters | None = None):
     """Yield each host chunk of ``chunks`` as a tensor on ``device``,
-    with the host side pipelined behind the device's work.
+    with the host side pipelined behind the device's work, counting what
+    the feed spent in ``feed``.
 
     A worker thread pulls the chunks and stages up to
     ``_prefetch_depth()`` of them ahead of the consumer (on the card:
@@ -432,15 +479,18 @@ def _device_prefetch(chunks, device: torch.device):
     consumer never waits on a dead worker: it polls, and raises if the
     worker has ended without handing over a result.
     """
+    feed = _FeedCounters() if feed is None else feed
     depth = _prefetch_depth()
     if depth == 0:
         for chunk in chunks:
-            yield _host_tensor(chunk).to(device)
+            with feed.copying(chunk.nbytes):
+                block = _host_tensor(chunk).to(device)
+            yield block
         return
 
     stop = threading.Event()
     on_card = device.type == "cuda"
-    ring = _PinnedRing(device, depth + 1, stop) if on_card else None
+    ring = _PinnedRing(device, depth + 1, stop, feed) if on_card else None
     # On the card the ring bounds the chunks in flight; on the CPU the
     # queue does.
     q: queue.Queue = queue.Queue(maxsize=0 if on_card else depth)
@@ -458,26 +508,20 @@ def _device_prefetch(chunks, device: torch.device):
         with torch.cuda.device(device):
             return ring.load(chunk)
 
+    def stage_on_host(chunk):
+        with feed.copying(chunk.nbytes):
+            return _host_tensor(chunk)
+
     t = threading.Thread(
         target=_prefetch_worker,
-        args=(chunks, stage_on_card if on_card else _host_tensor, offer),
+        args=(chunks, stage_on_card if on_card else stage_on_host, offer),
         name="petal-stream-prefetch", daemon=True,
     )
     t.start()
     try:
         while True:
-            try:
-                item = q.get(timeout=_POLL_S)
-            except queue.Empty:
-                if t.is_alive():
-                    continue
-                try:  # handed over just before the worker ended
-                    item = q.get_nowait()
-                except queue.Empty:
-                    raise RuntimeError(
-                        "the stream's prefetch worker ended without "
-                        "handing over a chunk or an error"
-                    ) from None
+            with feed.waiting():
+                item = _next_item(q, t)
             if item is _DONE:
                 return
             if isinstance(item, BaseException):
@@ -497,6 +541,24 @@ def _device_prefetch(chunks, device: torch.device):
         t.join(timeout=5.0)
         if ring is not None:
             ring.close()
+
+
+def _next_item(q: queue.Queue, worker: threading.Thread):
+    """The worker's next hand-over: a chunk, an error or ``_DONE``.  Polls,
+    so a worker that ended without handing one over raises here."""
+    while True:
+        try:
+            return q.get(timeout=_POLL_S)
+        except queue.Empty:
+            if worker.is_alive():
+                continue
+            try:  # handed over just before the worker ended
+                return q.get_nowait()
+            except queue.Empty:
+                raise RuntimeError(
+                    "the stream's prefetch worker ended without "
+                    "handing over a chunk or an error"
+                ) from None
 
 
 class _StreamState:
@@ -631,11 +693,12 @@ def _init_stream_carry(st: _StreamState, block, centering: bool,
 
 
 def _accumulate_chunks(st: _StreamState, chunks, centering: bool,
-                       precision: str = "highest") -> None:
+                       precision: str, feed: _FeedCounters) -> None:
     """Fold host chunks into ``st`` through :func:`_device_prefetch`.
     The grade is the stream's, fixed at its first chunk and kept by every
     later ``partial_fit`` call."""
-    with contextlib.closing(_device_prefetch(chunks, st.device)) as blocks:
+    with contextlib.closing(_device_prefetch(chunks, st.device,
+                                             feed)) as blocks:
         for block in blocks:
             if st.carry is None:
                 _init_stream_carry(st, block, centering, precision)
@@ -644,8 +707,9 @@ def _accumulate_chunks(st: _StreamState, chunks, centering: bool,
                     f"inconsistent block widths: expected {st.d}, "
                     f"got {block.shape[1]}"
                 )
-            _accum_step(st.carry, block, st.shift, precision=st.precision,
-                        mesh=st.put_mesh)
+            with span("petal.stream.accum"):
+                _accum_step(st.carry, block, st.shift,
+                            precision=st.precision, mesh=st.put_mesh)
             st.n += block.shape[0]
             st.n_blocks += 1
 
@@ -718,6 +782,15 @@ def accumulate_moments(blocks, *, centering: bool = True,
     >>> float(m.total_variance) == float((xc ** 2).sum())
     True
     """
+    return _accumulate_moments(blocks, centering, block_rows, precision,
+                               device, mesh, _FeedCounters())
+
+
+def _accumulate_moments(blocks, centering: bool, block_rows: int | None,
+                        precision: str, device, mesh,
+                        feed: _FeedCounters) -> StreamMoments:
+    """:func:`accumulate_moments`, counting what the feed spent in
+    ``feed``."""
     device = _common.model_device(mesh, device)
     _common.check_device(device)
     block_rows = _resolve_block_rows(block_rows, mesh)
@@ -726,7 +799,7 @@ def accumulate_moments(blocks, *, centering: bool = True,
                              block_rows)
     if st.multihost:
         chunks = _multihost_prologue(st, chunks, centering)
-    _accumulate_chunks(st, chunks, centering, precision)
+    _accumulate_chunks(st, chunks, centering, precision, feed)
     if st.carry is None:
         raise InvalidInput("empty stream: no data blocks")
     return _moments_from_state(st, centering)
@@ -809,15 +882,17 @@ def _stream_gram_precision(model) -> str:
 
 
 def _stream_fit(model, blocks, block_rows, solve):
-    t0 = time.perf_counter()
-    model._stream = None  # a full fit restarts any partial_fit stream
-    m = accumulate_moments(
-        blocks, centering=model._centering, block_rows=block_rows,
-        precision=_stream_gram_precision(model), device=model._device,
-        mesh=model._mesh,
-    )
-    solve(model, m)
-    _install_stats(model, m, t0)
+    _common.check_device(model._device)
+    with record_fit(model, 0, 0, model._device) as stats:
+        model._stream = None  # a full fit restarts any partial_fit stream
+        feed = _FeedCounters()
+        m = _accumulate_moments(
+            blocks, model._centering, block_rows,
+            _stream_gram_precision(model), model._device, model._mesh, feed,
+        )
+        with span("petal.stream.solve"):
+            solve(model, m)
+        _stream_stats(stats, m, feed)
     return model
 
 
@@ -874,21 +949,18 @@ def _install_state(model, m: StreamMoments, sigma, vt, k: int) -> None:
     model._n_samples = m.n_samples
 
 
-def _record_stats(model, t0: float, n: int, d: int,
-                  n_blocks: int) -> FitStats:
-    _sync(model._device)
-    stats = FitStats(wall_time_s=time.perf_counter() - t0, n_samples=n,
-                     n_features=d)
+def _stream_stats(stats, m: StreamMoments | None, feed: _FeedCounters,
+                  n: int = 0, d: int = 0, n_blocks: int = 0) -> None:
+    """A streamed fit's dims and counters on its ``record_fit`` stats:
+    from the moments pass ``m``, or ``n``, ``d`` and ``n_blocks`` where
+    there is none."""
+    if m is not None:
+        n, d, n_blocks = m.n_samples, int(m.gram.shape[0]), m.n_blocks
+    stats.n_samples, stats.n_features = n, d
     stats.extra["streamed_blocks"] = n_blocks
-    model.last_fit_stats_ = stats
-    return stats
-
-
-def _install_stats(model, m: StreamMoments, t0: float) -> FitStats:
-    stats = _record_stats(model, t0, m.n_samples, int(m.gram.shape[0]),
-                          m.n_blocks)
-    stats.extra["mean_shift_ratio"] = float(m.shift_ratio)
-    return stats
+    if m is not None:
+        stats.extra["mean_shift_ratio"] = float(m.shift_ratio)
+    feed.record(stats.extra)
 
 
 def transform_batched(model, blocks, *, block_rows: int | None = None):
@@ -918,8 +990,9 @@ def partial_fit_step(model, x_block, *, block_rows: int | None,
     a multi-host stream, where the call is collective: it joins the fold
     and the solve, drawing a sub-stream on every process alike.  If the
     solve fails, the rows stay in the stream and the model is unchanged;
-    the next successful call includes them."""
-    t0 = time.perf_counter()
+    the next successful call includes them.  The call's blocks are its
+    input, coerced before its ``record_fit`` starts, as ``fit`` coerces
+    its matrix; a call with nothing to do records nothing."""
     _check_stream_solver(model)
     st = model._stream
     mesh = model._mesh
@@ -940,16 +1013,20 @@ def partial_fit_step(model, x_block, *, block_rows: int | None,
     ))
     if not chunks and st.carry is not None and not st.multihost:
         return
-    if st.multihost and st.carry is None:
-        chunks = list(_multihost_prologue(st, chunks, model._centering))
-    _accumulate_chunks(st, chunks, model._centering,
-                       _stream_gram_precision(model))
-    if st.carry is None:
-        raise InvalidInput("empty stream: no data blocks")
-    st.calls += 1
-    m = _moments_from_state(st, model._centering)
-    solve(model, m)
-    _install_stats(model, m, t0).extra["partial_fit_calls"] = st.calls
+    with record_fit(model, 0, 0, model._device) as stats:
+        if st.multihost and st.carry is None:
+            chunks = list(_multihost_prologue(st, chunks, model._centering))
+        feed = _FeedCounters()
+        _accumulate_chunks(st, chunks, model._centering,
+                           _stream_gram_precision(model), feed)
+        if st.carry is None:
+            raise InvalidInput("empty stream: no data blocks")
+        st.calls += 1
+        m = _moments_from_state(st, model._centering)
+        with span("petal.stream.solve"):
+            solve(model, m)
+        _stream_stats(stats, m, feed)
+        stats.extra["partial_fit_calls"] = st.calls
 
 
 # -- streamed FastICA (two passes) -------------------------------------
@@ -1027,14 +1104,14 @@ def _fill_transposed(buf, block, offset: int):
 
 
 def _fill_pass(factory, block_rows: int, n: int, d: int, dtype, device,
-               fill_chunk) -> None:
+               fill_chunk, feed: _FeedCounters) -> None:
     """Second streamed pass: feed every chunk through
     ``fill_chunk(device_block, column_offset)`` through the same pipeline
     as the first, checking that the stream replays as it did."""
     filled = 0
     chunks = _uniform_chunks(_iter_input_blocks(factory(), block_rows),
                              block_rows, dtype_hint=_numpy_dtype(dtype))
-    with contextlib.closing(_device_prefetch(chunks, device)) as blocks:
+    with contextlib.closing(_device_prefetch(chunks, device, feed)) as blocks:
         for block in blocks:
             rows, width = block.shape
             if width != d:
@@ -1079,21 +1156,26 @@ def stream_fit_fast_ica(model, data, *, block_rows: int | None = None):
             "be honored in a stream - use 'eigh' or 'auto', or fit() "
             "in core"
         )
-    t0 = time.perf_counter()
-    device = model._device
-    block_rows = _resolve_block_rows(block_rows, mesh)
-    factory = _reiterable_factory(data, block_rows)
-    if not model._whiten:
-        if mesh is not None:
-            raise InvalidInput(
-                "whiten=False streamed fits are single-device (the "
-                "square d x d unmixing leaves nothing to shard over "
-                "sources); drop the mesh"
-            )
-        return _stream_fit_no_whiten(model, factory, block_rows, t0, fi)
+    _common.check_device(model._device)
+    with record_fit(model, 0, 0, model._device) as stats:
+        block_rows = _resolve_block_rows(block_rows, mesh)
+        factory = _reiterable_factory(data, block_rows)
+        feed = _FeedCounters()
+        if model._whiten:
+            _stream_fit_whitened(model, factory, block_rows, fi, stats, feed)
+        else:
+            _stream_fit_no_whiten(model, factory, block_rows, fi, stats,
+                                  feed)
+    return model
 
-    m = accumulate_moments(factory(), centering=True,
-                           block_rows=block_rows, device=device, mesh=mesh)
+
+def _stream_fit_whitened(model, factory, block_rows: int, fi, stats,
+                         feed: _FeedCounters) -> None:
+    """The whitened streamed FastICA: the moments pass, the eigh
+    whitening, the whitened pass and the iteration."""
+    device, mesh = model._device, model._mesh
+    m = _accumulate_moments(factory(), True, block_rows, "highest", device,
+                            mesh, feed)
     n, d = m.n_samples, int(m.gram.shape[0])
     k = min(n, d)
     if model._n_components is not None:
@@ -1104,8 +1186,8 @@ def stream_fit_fast_ica(model, data, *, block_rows: int | None = None):
         model._components = torch.zeros((0, d), dtype=m.dtype, device=device)
         model._means = m.means
         model._n_iter = 0
-        _install_stats(model, m, t0)
-        return model
+        _stream_stats(stats, m, feed)
+        return
 
     kmat, _sigma, off = fi.whitening_from_gram(m.gram.to(m.dtype), k,
                                                max(n, d))
@@ -1113,18 +1195,17 @@ def stream_fit_fast_ica(model, data, *, block_rows: int | None = None):
     sub = rng_util.split(model._gen)
     w_init = rng_util.normal(sub, (k, k), m.dtype, device)
     w, n_iter, buf_cols = _ica_fill_and_iterate(
-        model, factory, block_rows, m, k, kmat, w_init, mesh, fi)
+        model, factory, block_rows, m, k, kmat, w_init, mesh, fi, feed)
     model._components = mdot(w, kmat)
     model._means = m.means
     model._n_iter = n_iter
-    stats = _install_stats(model, m, t0)
+    _stream_stats(stats, m, feed)
     stats.n_iter = n_iter
     stats.extra["whitened_buffer_cols"] = buf_cols
-    return model
 
 
 def _ica_fill_and_iterate(model, factory, block_rows: int, m, k: int,
-                          kmat, w_init, mesh, fi):
+                          kmat, w_init, mesh, fi, feed: _FeedCounters):
     """The whitened pass and the iteration.  The buffer K·(X − 1μᵀ)ᵀ·√n
     is one k × (n_pad / size) column block on each device: the model's
     one device, or each of a one-process mesh's (each holds its share).
@@ -1154,7 +1235,8 @@ def _ica_fill_and_iterate(model, factory, block_rows: int, m, k: int,
                 buf[:, lo - i * width:hi - i * width] = (
                     y[:, lo - offset:hi - offset].to(buf.device))
 
-    _fill_pass(factory, block_rows, n, d, m.dtype, devices[0], fill_chunk)
+    _fill_pass(factory, block_rows, n, d, m.dtype, devices[0], fill_chunk,
+               feed)
     w, n_iter = _ica_iterate(model, Columns(bufs, mesh, n_pad), n, w_init,
                              fi)
     return w, n_iter, n_pad
@@ -1177,10 +1259,17 @@ def _ica_iterate(model, xs: Columns, n_valid: int, w_init, fi):
     return w, int(n_iter)
 
 
-def _stream_fit_no_whiten(model, factory, block_rows: int, t0, fi):
+def _stream_fit_no_whiten(model, factory, block_rows: int, fi, stats,
+                          feed: _FeedCounters) -> None:
     """``whiten=False``: the data is certified centered and whitened, so
     pass 1 only measures the stream's extent (on the host, no Gram) and
     pass 2 fills the d×n transposed buffer ``ica_par`` runs on."""
+    if model._mesh is not None:
+        raise InvalidInput(
+            "whiten=False streamed fits are single-device (the "
+            "square d x d unmixing leaves nothing to shard over "
+            "sources); drop the mesh"
+        )
     device = model._device
     _common.check_device(device)
     n = n_blocks = 0
@@ -1205,12 +1294,12 @@ def _stream_fit_no_whiten(model, factory, block_rows: int, t0, fi):
     def fill_chunk(block, offset):
         _fill_transposed(buf, block, offset)
 
-    _fill_pass(factory, block_rows, n, d, tdtype, device, fill_chunk)
+    _fill_pass(factory, block_rows, n, d, tdtype, device, fill_chunk, feed)
     sub = rng_util.split(model._gen)
     w_init = rng_util.normal(sub, (d, d), tdtype, device)
     w, n_iter = _ica_iterate(model, Columns([buf], None, n), n, w_init, fi)
     model._components = w.contiguous()  # as Pca's
     model._means = torch.zeros((d,), dtype=tdtype, device=device)
     model._n_iter = n_iter
-    _record_stats(model, t0, n, d, n_blocks).n_iter = n_iter
-    return model
+    _stream_stats(stats, None, feed, n, d, n_blocks)
+    stats.n_iter = n_iter

@@ -60,6 +60,7 @@ from ..ops.linalg import (
     svd_flip,
     svd_jit_cert,
 )
+from ..utils.profiling import span
 from .mesh import Columns, Rows
 
 __all__ = [
@@ -573,18 +574,22 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
         # algebra, then one fused centered matmul recovers the thin U
         # (needed for the reference-exact U-based svd_flip and for
         # fit_transform).
-        means, g_sub, tv = _gram_moments(
-            xs, centering, fuse_centering, gram_precision, n
-        )
-        sigma, vt, off = randomized_gram_recovery(
-            g_sub, omega, n_power_iters=n_power_iters
-        )
-        inv_sigma = torch.where(
-            sigma > 0, 1.0 / torch.where(sigma > 0, sigma, 1.0), 0.0
-        )
-        # U = Xc·V·Σ⁻¹ (zero columns where σ was cut to 0).
-        u = xs.map(_centered_matmul, vt.mH * inv_sigma[None, :], means)
-        u, vt = svd_flip_rows(u, vt)
+        with span("petal.rpca.moments"):
+            means, g_sub, tv = _gram_moments(
+                xs, centering, fuse_centering, gram_precision, n
+            )
+        with span("petal.rpca.gram_recovery"):
+            sigma, vt, off = randomized_gram_recovery(
+                g_sub, omega, n_power_iters=n_power_iters
+            )
+        with span("petal.rpca.recover_u"):
+            inv_sigma = torch.where(
+                sigma > 0, 1.0 / torch.where(sigma > 0, sigma, 1.0), 0.0
+            )
+            # U = Xc·V·Σ⁻¹ (zero columns where σ was cut to 0).
+            u = xs.map(_centered_matmul, vt.mH * inv_sigma[None, :], means)
+        with span("petal.rpca.svd_flip"):
+            u, vt = svd_flip_rows(u, vt)
         return {"u": _out(u, x), "sigma": sigma, "vt": vt, "means": means,
                 "total_variance": tv, "off": off}
     if normalizer not in ("lu", "qr", "cholqr2", "none"):
@@ -600,48 +605,50 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
         means, xm, xtm, _, sqnorm = _contractions(
             xs, centering, fuse_centering
         )
-    if mixed:
-        f32 = torch.float32
-        # One pass: the centered float32 copy the finder iterates on.
-        xc32 = xs.map(
-            lambda s, v, mu: mask_rows(s.to(f32) - mu if centering
-                                       else s.to(f32), v),
-            means.to(f32))
-        if range_finder == "gram":
-            g_sub = _reduce(xc32, lambda s, v: _gram_of(s, gram_precision))
-            w = _gram_subspace(g_sub, omega.to(f32), n_power_iters)
-            q = xc32.map(lambda s, v, ww: mdot(s, ww), w)
+    with span("petal.rpca.sketch"):
+        if mixed:
+            f32 = torch.float32
+            # One pass: the centered float32 copy the finder iterates on.
+            xc32 = xs.map(
+                lambda s, v, mu: mask_rows(s.to(f32) - mu if centering
+                                           else s.to(f32), v),
+                means.to(f32))
+            if range_finder == "gram":
+                g_sub = _reduce(xc32, lambda s, v: _gram_of(s, gram_precision))
+                w = _gram_subspace(g_sub, omega.to(f32), n_power_iters)
+                q = xc32.map(lambda s, v, ww: mdot(s, ww), w)
+            else:
+                q = xc32.map(lambda s, v, om: mdot(s, om), omega.to(f32))
+                for _ in range(n_power_iters):
+                    qn = norm(q)
+                    q = psum([mdot(s.mH, qs) for s, qs in
+                              zip(xc32.shards, qn.shards)], xs.mesh)
+                    q = xc32.map(lambda s, v, m: mdot(s, m), norm(q))
+            q = q.map(lambda s, v: s.to(xs.dtype))
+        elif range_finder == "gram":
+            use_fused = (
+                fused_sketch
+                and fuse_centering
+                and gram_precision == "default"
+                and xs.dtype == torch.float32
+                and sketch_kernel.supports(xs.rows_per_shard, d, l, xs.dtype)
+            )
+            if use_fused:
+                means, tv, q = _fused_gram_flow(
+                    xs, omega, centering, n_power_iters, gram_precision, n
+                )
+            else:
+                with span("petal.rpca.moments"):
+                    means, g_sub, tv = _gram_moments(
+                        xs, centering, fuse_centering, gram_precision, n
+                    )
+                w = _gram_subspace(g_sub, omega, n_power_iters)
+                q = xs.map(_centered_matmul, w, means)
         else:
-            q = xc32.map(lambda s, v, om: mdot(s, om), omega.to(f32))
+            q = xm(omega)
             for _ in range(n_power_iters):
-                qn = norm(q)
-                q = psum([mdot(s.mH, qs) for s, qs in
-                          zip(xc32.shards, qn.shards)], xs.mesh)
-                q = xc32.map(lambda s, v, m: mdot(s, m), norm(q))
-        q = q.map(lambda s, v: s.to(xs.dtype))
-    elif range_finder == "gram":
-        use_fused = (
-            fused_sketch
-            and fuse_centering
-            and gram_precision == "default"
-            and xs.dtype == torch.float32
-            and sketch_kernel.supports(xs.rows_per_shard, d, l, xs.dtype)
-        )
-        if use_fused:
-            means, tv, q = _fused_gram_flow(
-                xs, omega, centering, n_power_iters, gram_precision, n
-            )
-        else:
-            means, g_sub, tv = _gram_moments(
-                xs, centering, fuse_centering, gram_precision, n
-            )
-            w = _gram_subspace(g_sub, omega, n_power_iters)
-            q = xs.map(_centered_matmul, w, means)
-    else:
-        q = xm(omega)
-        for _ in range(n_power_iters):
-            q = xtm(norm(q))
-            q = xm(norm(q))
+                q = xtm(norm(q))
+                q = xm(norm(q))
     # Final orthonormalization: Householder QR matches the reference's
     # economy-QR semantics (linalg.rs:127-147); CholeskyQR2 is the
     # matmul-only choice.  Always at the data dtype.
@@ -649,25 +656,31 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
         final_orth = "qr" if normalizer == "qr" else "cholqr2"
     if final_orth not in ("qr", "cholqr2"):
         raise ValueError(f"unknown final_orth {final_orth!r}")
-    q = _normalize(q, final_orth)
-    if gram_means:
-        # Qᵀ(X − 1μᵀ) with the Gram branch's means (the fused kernel's
-        # column sums), formed (l, d) row-major: the SVD's transpose then
-        # hands B's rows to K2 as the columns it rotates, with no copy.
-        # Real data only: the Gram finder rejects complex.
-        b = (psum([mdot(qs.mT, s) for qs, s in zip(q.shards, xs.shards)],
-                  xs.mesh)
-             - torch.outer(_reduce(q, lambda s, v: s.sum(0)), means))
-    else:
-        b = xtm(q).mH  # (l, d): Qᴴ·Xc
-    u_b, sigma, vt, off = svd_jit_cert(b)
+    with span("petal.rpca.orthonormalize"):
+        q = _normalize(q, final_orth)
+    with span("petal.rpca.project"):
+        if gram_means:
+            # Qᵀ(X − 1μᵀ) with the Gram branch's means (the fused kernel's
+            # column sums), formed (l, d) row-major: the SVD's transpose
+            # then hands B's rows to K2 as the columns it rotates, with no
+            # copy.  Real data only: the Gram finder rejects complex.
+            b = (psum([mdot(qs.mT, s) for qs, s in zip(q.shards,
+                                                        xs.shards)],
+                      xs.mesh)
+                 - torch.outer(_reduce(q, lambda s, v: s.sum(0)), means))
+        else:
+            b = xtm(q).mH  # (l, d): Qᴴ·Xc
+    with span("petal.rpca.svd_b"):
+        u_b, sigma, vt, off = svd_jit_cert(b)
     if q.shape[1] > l:
         # The fused route widened Q with the ones (centering) column; its
         # singular direction is ~0 and sorts last.  Drop it so every
         # route installs identically-shaped state.
         u_b, sigma, vt = u_b[:, :l], sigma[:l], vt[:l]
-    u = q.map(lambda s, v, ub: mdot(s, ub), u_b)
-    u, vt = svd_flip_rows(u, vt)
+    with span("petal.rpca.recover_u"):
+        u = q.map(lambda s, v, ub: mdot(s, ub), u_b)
+    with span("petal.rpca.svd_flip"):
+        u, vt = svd_flip_rows(u, vt)
     return {
         "u": _out(u, x),
         "sigma": sigma,
