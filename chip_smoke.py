@@ -54,6 +54,10 @@ through the entry points a user calls:
   replicated state bitwise equal on both), each fit held against the
   same fit without a mesh.
 
+K4, FastICA's fused step update (``csrc/ica_update.cu``), is held
+against the eager update on config-3 steps at k = 64 and at its largest
+k, and timed beside it (``k4``); the config-3 fits count its launches.
+
 K2's σ is checked at the edges of its reach (the JAX kernel's gate), and
 past the gate QR + K2 on R is timed beside K2 on the panel itself
 (``k2_reach``).  K2 and K3 are then timed on the panels those fits hand
@@ -110,6 +114,30 @@ def emit(obj) -> None:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def device_ms(fn, reps: int, lead_ms: float = 20.0) -> float:
+    """Median device time of ``fn`` over ``reps`` runs, by CUDA events
+    behind a ``lead_ms`` spin of the card, so the host has queued all of
+    ``fn`` before the card reaches it: the card's time alone, not the
+    host's time to issue it (which :func:`cuda_ms` counts when the card
+    waits on the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = int(lead_ms * 2e6)  # at most 2 GHz: at least lead_ms
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1059,7 +1087,7 @@ def phase_fast_ica_config3(ctx):
     xs = {"float64": s @ a.mT}
     del s
     xs["float32"] = xs["float64"].float()
-    kernels = {"jacobi_svd": k2, "jacobi_svd_f64": k3}
+    kernels = {"jacobi_svd": k2, "jacobi_svd_f64": k3, "ica_update": ctx.k4}
 
     # The panels the fits hand K2 and K3 (the warm-up fits).
     ctx.k3_cases["fast_ica_gram_64x64"] = kernel_inputs(
@@ -1084,21 +1112,28 @@ def phase_fast_ica_config3(ctx):
             if dt != dtype:
                 continue
             ica_model(api, CUDA, **knobs).fit(x)  # warm-up
-            fit_ms, counts = [], []
+            fit_ms, counts, iters = [], [], []
             for _ in range(3):
                 model = ica_model(api, CUDA, **knobs)
                 for mod in kernels.values():
                     mod.launches = 0
                 model.fit(x)
                 counts.append({n: m.launches for n, m in kernels.items()})
+                iters.append(model.n_iter_)
                 fit_ms.append(model.last_fit_stats_.wall_time_s * 1e3)
             solver = fi.resolve_whiten_solver(
                 knobs.get("whiten_solver", "auto"), x.dtype, "cuda")
             need = ["jacobi_svd_f64"] if dtype == "float64" else (
                 ["jacobi_svd"] if solver == "svd" else [])
-            for c in counts:
+            # A float32 step under Newton–Schulz is one K4 launch.
+            k4_every_step = dtype == "float32" and fi.resolve_decorrelation(
+                knobs.get("decorrelation", "auto"), "cuda") == "ns"
+            for c, it in zip(counts, iters):
                 for kname in need:
                     require(c[kname] > 0, f"FastIca {name} launched no {kname}")
+                require(not k4_every_step or c["ica_update"] == it,
+                        f"FastIca {name}: {c['ica_update']} K4 launches in "
+                        f"{it} steps")
                 ctx.add_launches(c)
             comp = model.components_.double()
             g = comp @ gram @ comp.mT
@@ -1257,6 +1292,96 @@ def phase_fast_ica_card_vs_cpu(ctx):
         require(c["components_rel_err"] <= c["band"],
                 f"FastIca {name}: card vs CPU {c['components_rel_err']}")
     return {"phase": "fast_ica_card_vs_cpu", "checks": checks}
+
+
+def ns_eager(m):
+    """``symmetric_decorrelation_ns`` under another name: ``_update``
+    runs its eager arithmetic for it, not K4."""
+    from petal_decomposition_tpu_torch.models import fast_ica as fi
+
+    return fi.symmetric_decorrelation_ns(m)
+
+
+def k4_step(dev, k, seed, steps=3):
+    """``(w, gx, gsum, p_inv)`` of a float32 FastIca step at width ``k``:
+    config 3's whitened table at k = 64 (``ica32_data``), else ``k``
+    whitened Laplace sources of ``NI`` samples (κ(A) = 4 as config 3);
+    W from a decorrelated Gaussian W₀ after ``steps`` eager steps."""
+    import torch
+
+    from petal_decomposition_tpu_torch.models import fast_ica as fi
+    from petal_decomposition_tpu_torch.ops.linalg import mdot
+
+    if k == KI:
+        x = ica32_data(dev)
+    else:
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        e = torch.empty((2, NI, k), device=dev).exponential_(generator=g)
+        q, _ = torch.linalg.qr(torch.randn(k, k, generator=g, device=dev))
+        x = (e[0] - e[1]) @ (q * torch.linspace(1, 4, k, device=dev)).mT
+    xc = x - x.mean(0)
+    kmat = fi._whitening_matrix(xc.mT, k, "svd")[0]
+    x1 = mdot(kmat, xc.mT) * math.sqrt(NI)
+    g = torch.Generator().manual_seed(seed)
+    w = fi.symmetric_decorrelation(torch.randn(k, k, generator=g).to(x1))
+
+    for _ in range(steps):
+        w, _ = fi._step(w, x1, "logcosh", ns_eager, 1.0 / NI)
+    gwtx, gsum = fi._contrast_sums("logcosh", mdot(w, x1))
+    return w, mdot(gwtx, x1.mT), gsum, 1.0 / NI
+
+
+# K4's check band: W1 and lim against the eager update (the test file's,
+# tests/test_torch_ica_update_kernel.py; lim relative to 1).
+K4_BAND = 1e-5
+
+
+@phase
+def phase_k4(ctx):
+    """K4 against the eager update (``_update`` with
+    ``symmetric_decorrelation_ns``, the kernel's plain arithmetic on the
+    card) on config-3 steps at k = 64 and at ``K_MAX``: the largest
+    relative difference of W1 and of lim; each one's device time (CUDA
+    events behind a spin of the card, median of 20: the card's time
+    alone) and its time as the loop sees it (CUDA events, median of 20:
+    the host's issue time where the card waits); and K4's bound, 148·k³
+    float32 operations at 67 TFLOP/s against 12·k² bytes at 3.35 TB/s."""
+    import torch
+
+    from petal_decomposition_tpu_torch.models import fast_ica as fi
+    from petal_decomposition_tpu_torch.ops.kernels import ica_update as k4
+
+    times, err_max = {}, 0.0
+    for k in (KI, k4.K_MAX):
+        w, gx, gsum, p_inv = k4_step(ctx.dev, k, SEED + 40 + k)
+        w1, lim = k4.ica_update(w, gx, gsum, p_inv)
+        e_w1, e_lim = fi._update(w, gx, gsum, ns_eager, p_inv, 0.0)
+        torch.cuda.synchronize()
+        w1_err = rel_max(w1.double(), e_w1.double())
+        lim_err = abs(float(lim) - float(e_lim)) / max(1.0, float(e_lim))
+        require(w1_err < K4_BAND and lim_err < K4_BAND,
+                f"K4 at k = {k}: W1 {w1_err}, lim {lim_err} from the eager "
+                "update")
+        err_max = max(err_max, w1_err, lim_err)
+        bound_ms, bound_by = bound(12 * k * k, {"float32": 148 * k ** 3})
+        times[f"k{k}"] = {
+            "k": k, "w1_rel_err": w1_err, "lim_err": lim_err,
+            "lim": float(lim),
+            "ms": device_ms(lambda: k4.ica_update(w, gx, gsum, p_inv), 20),
+            "plain_ms": device_ms(
+                lambda: fi._update(w, gx, gsum, ns_eager, p_inv, 0.0), 20),
+            "issue_ms": cuda_ms(lambda: k4.ica_update(w, gx, gsum, p_inv),
+                                20),
+            "plain_issue_ms": cuda_ms(
+                lambda: fi._update(w, gx, gsum, ns_eager, p_inv, 0.0), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    ctx.kernels["ica_update"].update(
+        max_abs_err=err_max, library_ms=None,
+        **{key: times[f"k{KI}"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return {"phase": "k4_vs_eager", "band": K4_BAND, "times": times}
 
 
 # -- the single-device surface: complex RandomizedPca, save/load, the
@@ -2890,6 +3015,7 @@ PHASES = (phase_k1, phase_slice, phase_default, phase_pca_f64,
           phase_pca_f32_wide, phase_randomized_f64, phase_gram_recovery_f64,
           phase_randomized_complex, phase_serialize, phase_native_offload,
           phase_nan_debugging, phase_fast_ica_config3, phase_fast_ica_card_vs_cpu,
+          phase_k4,
           phase_stream_north_star, phase_stream_exact,
           phase_stream_randomized_f64, phase_partial_fit,
           phase_stream_fast_ica, phase_mesh_one_card, phase_mesh_shards,
@@ -2899,6 +3025,7 @@ KERNELS = {
     "sketch_moments": ("sketch_moments.cu", "sketch_kernel.py:143"),
     "jacobi_svd": ("jacobi_svd.cu", "jacobi_kernels.py:187"),
     "jacobi_svd_f64": ("jacobi_svd_f64.cu", "jacobi_f64_kernel.py:187"),
+    "ica_update": ("ica_update.cu", None),
 }
 
 
@@ -2910,6 +3037,7 @@ def context():
     import petal_decomposition_tpu_torch as api
     from petal_decomposition_tpu_torch.ops import linalg
     from petal_decomposition_tpu_torch.ops.kernels import (
+        ica_update as k4,
         jacobi_f64_kernel as k3,
         jacobi_kernels as k2,
         sketch_kernel as k1,
@@ -2921,15 +3049,15 @@ def context():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for done in [pool.submit(m.build) for m in (k1, k2, k3)]:
+    with ThreadPoolExecutor(4) as pool:
+        for done in [pool.submit(m.build) for m in (k1, k2, k3, k4)]:
             done.result()
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "kernel_build_s": time.perf_counter() - t0})
     ctx = SimpleNamespace(
-        api=api, linalg=linalg, k1=k1, k2=k2, k3=k3, smi=smi,
+        api=api, linalg=linalg, k1=k1, k2=k2, k3=k3, k4=k4, smi=smi,
         dev=torch.device(CUDA), k2_cases={}, k3_cases={},
         kernels={name: {"launches": 0} for name in KERNELS},
     )
@@ -2949,7 +3077,9 @@ def kernels_line(ctx) -> dict:
         out.append({
             "name": name, "route": "cuda",
             "source": f"petal_decomposition_tpu_torch/csrc/{source}",
-            "replaces": f"petal_decomposition_tpu/ops/pallas/{replaces}",
+            "replaces": (f"petal_decomposition_tpu/ops/pallas/{replaces}"
+                         if replaces else "none (XLA ops in the JAX "
+                         "package's while_loop)"),
             "launches": k["launches"], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

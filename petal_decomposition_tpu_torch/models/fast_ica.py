@@ -20,7 +20,10 @@ under ``decorrelation="eigh"``) run the hand-written K3 kernel through
 ``ops.linalg.eigh_psd_jit_cert``, and the float32 SVD whitening of a
 tall panel runs Householder QR and K2 on R through ``ops.jacobi``.  The
 two k×n products of a step are cuBLAS matmuls, as they are XLA ops in
-the JAX package.
+the JAX package.  A float32 step under Newton–Schulz decorrelation runs
+the rest of its update — the update formula, the decorrelation and the
+stop value — as one launch of the hand-written K4
+(``ops/kernels/ica_update.py``) where it takes W (:func:`_k4_takes`).
 
 Where the JAX package runs the whole iteration as one on-device
 ``lax.while_loop``, this loop runs on the host: its stop test, ``(lim ≥
@@ -46,6 +49,7 @@ from ..config import config as _config
 from ..errors import InvalidInput, LinalgError
 from ..ops import linalg as _linalg
 from ..ops import splitmm
+from ..ops.kernels import ica_update
 from ..ops.linalg import mdot
 from ..parallel.mesh import Columns
 from ..utils import rng as rng_util
@@ -110,7 +114,11 @@ def _contrast_sums(fun: str, wx: torch.Tensor, sum_dtype=None):
     contrast in float32 but carries its n-long reduction in float64)."""
     if fun == "logcosh":
         g = torch.tanh(wx)
-        s = (1.0 - g * g).sum(1, dtype=sum_dtype)
+        # 1 − g² in g²'s own buffer: one k×n temporary beside G, not two
+        # (the same operations and roundings as ``1.0 - g * g``).
+        gp = g * g
+        torch.sub(torch.ones((), dtype=gp.dtype), gp, out=gp)
+        s = gp.sum(1, dtype=sum_dtype)
     elif fun == "exp":
         e = torch.exp(-(wx * wx) / 2.0)
         g = wx * e
@@ -156,7 +164,17 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
+def _k4_takes(w, decorr) -> bool:
+    """True when K4 runs the update of ``w``: ``decorr`` is
+    :func:`symmetric_decorrelation_ns` (at its default iteration count)
+    and ``w`` a real float32 k×k on CUDA with k ≤ ``ica_update.K_MAX``."""
+    return decorr is symmetric_decorrelation_ns and ica_update.supports(w)
+
+
 def _update(w, gx, gsum, decorr, p_inv: float, pad_g0: float):
+    if _k4_takes(w, decorr):
+        with span("petal.ica.decorrelate"):
+            return ica_update.ica_update(w, gx, gsum, p_inv, pad_g0)
     g_wtx = (gsum - pad_g0) * p_inv
     # W1 = symdecorr(G·Xᵀ/p − diag(g′)·W)  (ref: ica.rs:333-343)
     w_new = gx * p_inv - g_wtx[:, None] * w
