@@ -7,6 +7,8 @@ here: complex tensors stay on the model's device.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -19,6 +21,12 @@ __all__ = [
     "check_device",
     "model_device",
     "as_input",
+    "check_rows",
+    "n_rows",
+    "fit_record",
+    "mesh_shards",
+    "project_rows",
+    "transform_input",
     "check_mesh_complex",
     "gathered",
     "check_min_dims",
@@ -87,16 +95,94 @@ def model_device(mesh, device) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-def as_input(x, device, mesh, complex_ok: bool = False) -> torch.Tensor:
+def as_input(x, device, mesh, complex_ok: bool = False):
     """A fit's input: :func:`as_matrix` on the model's ``device``, or for
     a mesh fit where it already is (host data stays on the host and each
-    shard copies only its own rows)."""
+    shard copies only its own rows).  Row shards already placed on the
+    model's mesh (``parallel.rows_from_local``) are taken as they are."""
+    from ..parallel.mesh import Rows
+
+    if isinstance(x, Rows):
+        check_rows(x, mesh)
+        if x.is_complex() and not complex_ok:
+            raise NotImplementedError(
+                "complex input is not supported by the PyTorch port yet"
+            )
+        return x
     if mesh is None:
         return as_matrix(x, device, complex_ok)
     for dev in mesh.devices:
         check_device(dev)
     home = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
     return as_matrix(x, home, complex_ok)
+
+
+def check_rows(x, mesh) -> None:
+    """Row shards are fitted or projected only by a model on their own
+    mesh."""
+    if x.mesh is None or x.mesh != mesh:
+        raise ValueError(
+            f"the rows are placed on {x.mesh!r}, not on the model's mesh "
+            f"{mesh!r}"
+        )
+
+
+def n_rows(x) -> int:
+    """The data rows of a fit's input: a matrix's rows, or the valid rows
+    of row shards (their padding left out)."""
+    from ..parallel.mesh import Rows
+
+    return x.n_valid if isinstance(x, Rows) else x.shape[0]
+
+
+@contextlib.contextmanager
+def fit_record(model, x, mesh):
+    """:func:`..utils.profiling.record_fit` over the input's data rows;
+    a mesh fit's ``extra`` gains its share of the process's collectives,
+    ``collective_calls`` and ``collective_bytes``."""
+    from ..parallel.distributed import collectives
+    from ..utils.profiling import record_fit
+
+    with record_fit(model, n_rows(x), x.shape[1], model.device) as stats:
+        calls, nbytes = collectives.calls, collectives.bytes
+        try:
+            yield stats
+        finally:
+            if mesh is not None:
+                stats.extra["collective_calls"] = collectives.calls - calls
+                stats.extra["collective_bytes"] = collectives.bytes - nbytes
+
+
+def mesh_shards(x, mesh):
+    """A mesh fit's row shards and data rows: ``x`` as it is where it is
+    placed already, else the whole matrix zero-padded and sharded."""
+    from ..parallel.mesh import Rows, shard_rows_padded
+
+    if isinstance(x, Rows):
+        return x, x.n_valid
+    return shard_rows_padded(x, mesh)
+
+
+def project_rows(x, mesh, fn, *state):
+    """``fn(shard, *state_on_its_device)`` on every row shard of ``x``,
+    each on its own device, gathered as the ``n × k`` result of its data
+    rows on every process."""
+    check_rows(x, mesh)
+    return gathered(x.map(lambda s, _v, *st: fn(s, *st), *state), x.n_valid)
+
+
+def transform_input(x, device, mesh, components, means, centering: bool):
+    """:func:`transform` of a matrix on ``device``, or of row shards,
+    each on its own device, gathered."""
+    from ..parallel.mesh import Rows
+
+    if isinstance(x, Rows):
+        check_fitted(components)
+        return project_rows(
+            x, mesh, lambda s, w, mu: transform(s, w, mu, centering),
+            components, means)
+    return transform(as_matrix(x, device, complex_ok=True), components,
+                     means, centering)
 
 
 def check_mesh_complex(mesh, dtype) -> None:
@@ -124,8 +210,9 @@ def gathered(u, n: int):
 
 
 def check_min_dims(x, n_components: int) -> None:
-    """Every dimension must be at least n_components (ref: pca.rs:199-204)."""
-    if any(dim < n_components for dim in x.shape):
+    """Every dimension must be at least n_components (ref: pca.rs:199-204);
+    row shards count their data rows."""
+    if any(dim < n_components for dim in (n_rows(x),) + tuple(x.shape[1:])):
         raise InvalidInput(
             f"every dimension should be at least {n_components}"
         )

@@ -51,7 +51,7 @@ from ..ops import linalg as _linalg
 from ..ops import splitmm
 from ..ops.kernels import ica_update
 from ..ops.linalg import mdot
-from ..parallel.mesh import Columns
+from ..parallel.mesh import Columns, Rows
 from ..utils import rng as rng_util
 from ..utils.profiling import span
 from . import _common
@@ -434,6 +434,14 @@ def _whitening_from_spectrum(u, sigma, k: int, rank_dim: int):
     return kmat, sigma_k, inv
 
 
+def _unmix(x, components, means):
+    """``(x − μ)·Wᵀ`` at the promoted dtype of ``x`` and ``W``."""
+    if x.shape[1] != means.shape[0]:
+        raise InvalidInput("too many columns")
+    target = torch.promote_types(x.dtype, components.dtype)
+    return mdot(x.to(target) - means, components.mT.to(target))
+
+
 class FastIca:
     """FastICA with symmetric decorrelation (ref: ica.rs:41-222).
 
@@ -518,10 +526,8 @@ class FastIca:
 
     # -- fitting (ref: ica.rs:105-157) ----------------------------------
     def fit(self, x) -> "FastIca":
-        from ..utils.profiling import record_fit
-
         x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
-        with record_fit(self, x.shape[0], x.shape[1], self._device) as stats:
+        with _common.fit_record(self, x, self._mesh) as stats:
             self._inner_fit(x)
             stats.n_iter = self._n_iter
         return self
@@ -593,21 +599,19 @@ class FastIca:
         return mdot(y.to(target), self.mixing_.mT.to(target)) + self._means
 
     def transform(self, x):
-        """(x − μ)·Wᵀ (ref: ica.rs:120-131)."""
-        x = _common.as_matrix(x, self._device, complex_ok=True)
+        """(x − μ)·Wᵀ (ref: ica.rs:120-131); row shards are unmixed each
+        on its own device and gathered."""
         _common.check_fitted(self._components)
-        if x.shape[1] != self._means.shape[0]:
-            raise InvalidInput("too many columns")
-        target = torch.promote_types(x.dtype, self._components.dtype)
-        return mdot(x.to(target) - self._means,
-                    self._components.mT.to(target))
+        if isinstance(x, Rows):
+            return _common.project_rows(x, self._mesh, _unmix,
+                                        self._components, self._means)
+        return _unmix(_common.as_matrix(x, self._device, complex_ok=True),
+                      self._components, self._means)
 
     def fit_transform(self, x):
         """Fit, then return ``(components·X_c)ᵀ`` (ref: ica.rs:147-157)."""
-        from ..utils.profiling import record_fit
-
         x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
-        with record_fit(self, x.shape[0], x.shape[1], self._device) as stats:
+        with _common.fit_record(self, x, self._mesh) as stats:
             xt_c = self._inner_fit(x)
             stats.n_iter = self._n_iter
         if xt_c is None:  # a mesh fit: the same result by the projection
@@ -629,7 +633,7 @@ class FastIca:
         (d × n), as the reference does, or None for a mesh fit."""
         # Complex on an accelerator mesh is a defined error.
         _common.check_mesh_complex(self._mesh, x.dtype)
-        n, d = x.shape
+        n, d = _common.n_rows(x), x.shape[1]
         if not self._whiten:
             if n == 0 or d == 0:
                 raise InvalidInput(
@@ -647,7 +651,7 @@ class FastIca:
             # fitted with an empty component matrix, so transform and
             # fit_transform degrade gracefully (ica.rs:174-176 returns
             # early and leaves the build state).
-            x = x.to(self._device)
+            x = _common.gathered(x, n).to(self._device)
             means = (x.mean(0) if n > 0 else
                      torch.zeros((d,), dtype=x.dtype, device=x.device))
             self._components = torch.zeros((0, d), dtype=x.dtype,
@@ -710,10 +714,9 @@ class FastIca:
         when it ran — before any state changes.  Returns None:
         ``fit_transform`` projects with ``transform``."""
         from ..parallel.distributed import fast_ica_fit
-        from ..parallel.mesh import shard_rows_padded
 
         sub = rng_util.split(self._gen)
-        xs, n = shard_rows_padded(x, self._mesh)
+        xs, _ = _common.mesh_shards(x, self._mesh)
         w_init = rng_util.normal(sub, (k, k), x.dtype, self._device)
         real = _common.real_dtype(x.dtype)
         st = fast_ica_fit(

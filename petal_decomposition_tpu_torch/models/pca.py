@@ -169,27 +169,24 @@ class Pca:
     # -- fitting --------------------------------------------------------
     def fit(self, x) -> "Pca":
         """Fit the model (ref: pca.rs:116-122).  Returns ``self``."""
-        from ..utils.profiling import record_fit
-
         x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
-        with record_fit(self, x.shape[0], x.shape[1], self._device):
+        with _common.fit_record(self, x, self._mesh):
             self._inner_fit(x)
         return self
 
     def transform(self, x):
-        """Apply the learned projection (ref: pca.rs:130-135)."""
-        return _common.transform(
-            _common.as_matrix(x, self._device, complex_ok=True),
-            self._components, self._means, self._centering,
+        """Apply the learned projection (ref: pca.rs:130-135); row shards
+        are projected each on its own device and gathered."""
+        return _common.transform_input(
+            x, self._device, self._mesh, self._components, self._means,
+            self._centering,
         )
 
     def fit_transform(self, x):
         """Fit and project in one pass, reusing U (ref: pca.rs:153-167)."""
-        from ..utils.profiling import record_fit
-
         x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
-        with record_fit(self, x.shape[0], x.shape[1], self._device):
-            u = _common.gathered(self._inner_fit(x), x.shape[0])
+        with _common.fit_record(self, x, self._mesh):
+            u = _common.gathered(self._inner_fit(x), _common.n_rows(x))
         return _common.transform_with_u(
             u, self._singular_full, self._n_components
         )
@@ -263,7 +260,6 @@ class Pca:
         """ref: pca.rs:195-231.  Returns U: row shards for a Gram fit on
         a mesh, else a tensor."""
         from ..parallel.distributed import pca_fit_gram
-        from ..parallel.mesh import shard_rows_padded
 
         self._stream = None  # a full fit restarts any partial_fit stream
         mesh = self._mesh
@@ -271,7 +267,7 @@ class Pca:
         _common.check_mesh_complex(mesh, x.dtype)
         k = self._n_components
         _common.check_min_dims(x, k)
-        n, d = x.shape
+        n, d = _common.n_rows(x), x.shape[1]
         if n == 0:
             # Empty input: the reference's mean_axis returns None and
             # inner_fit early-returns an empty U without updating state
@@ -286,7 +282,7 @@ class Pca:
             and (mesh is not None or self._auto_prefers_gram(x))
         )
         if mesh is not None:
-            xs, _ = shard_rows_padded(x, mesh)
+            xs, _ = _common.mesh_shards(x, mesh)
         # Certificates are checked before any state mutates: a failed
         # refit leaves a previously fitted model untouched.
         if use_gram:

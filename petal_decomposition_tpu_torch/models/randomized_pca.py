@@ -195,25 +195,25 @@ class RandomizedPca:
 
     # -- fitting (ref: pca.rs:430-550) ----------------------------------
     def fit(self, x) -> "RandomizedPca":
-        from ..utils.profiling import record_fit
-
+        """Fit the model on ``x``: a matrix, or on a mesh model the row
+        shards of one (``parallel.rows_from_local``).  Returns ``self``."""
         x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
-        with record_fit(self, x.shape[0], x.shape[1], self._device):
+        with _common.fit_record(self, x, self._mesh):
             self._inner_fit(x)
         return self
 
     def transform(self, x):
-        return _common.transform(
-            _common.as_matrix(x, self._device, complex_ok=True),
-            self._components, self._means, self._centering,
+        """``(x − μ)·Wᴴ``; row shards are projected each on its own
+        device and gathered as the ``n × k`` result on every process."""
+        return _common.transform_input(
+            x, self._device, self._mesh, self._components, self._means,
+            self._centering,
         )
 
     def fit_transform(self, x):
-        from ..utils.profiling import record_fit
-
         x = _common.as_input(x, self._device, self._mesh, complex_ok=True)
-        with record_fit(self, x.shape[0], x.shape[1], self._device):
-            u = _common.gathered(self._inner_fit(x), x.shape[0])
+        with _common.fit_record(self, x, self._mesh):
+            u = _common.gathered(self._inner_fit(x), _common.n_rows(x))
         return _common.transform_with_u(
             u, self._singular_full, self._n_components
         )
@@ -289,7 +289,7 @@ class RandomizedPca:
         _common.check_mesh_complex(self._mesh, x.dtype)
         k = self._n_components
         _common.check_min_dims(x, k)
-        n, d = x.shape
+        n, d = _common.n_rows(x), x.shape[1]
         if n == 0:
             self._singular_full = torch.zeros(
                 (0,), dtype=_common.real_dtype(x.dtype), device=self._device
@@ -341,14 +341,14 @@ class RandomizedPca:
 
     def _fit_mesh(self, x, omega):
         """The fit on the mesh's row shards (JAX ``models/
-        randomized_pca.py:288-333``), fused centering and the default
-        final orthonormalization.  Float32 on the card's data-side Gram
+        randomized_pca.py:288-333``; ``x`` is placed on them already, or
+        each process takes its shards of the whole matrix), fused
+        centering and the default final orthonormalization.  Float32 on the card's data-side Gram
         route runs K1 on every shard; there is no availability probe: a
         kernel that cannot be built or launched raises."""
         from ..parallel.distributed import randomized_pca_fit
-        from ..parallel.mesh import shard_rows_padded
 
-        xs, n = shard_rows_padded(x, self._mesh)
+        xs, n = _common.mesh_shards(x, self._mesh)
         fused_ok = (
             self._mesh.on_accelerator
             and x.dtype == torch.float32

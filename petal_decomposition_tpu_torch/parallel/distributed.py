@@ -91,10 +91,13 @@ class CollectiveStats:
 collectives = CollectiveStats()
 
 
-def _counted(t: torch.Tensor, run) -> None:
+def _counted(t: torch.Tensor, name: str, run) -> None:
+    """``run()``, the collective, counted and inside the span ``name``,
+    under which its kernels (NCCL's) fall."""
     collectives.calls += 1
     collectives.bytes += t.numel() * t.element_size()
-    run()
+    with span(name):
+        run()
 
 
 def _all_reduce(t: torch.Tensor, mesh) -> None:
@@ -103,7 +106,8 @@ def _all_reduce(t: torch.Tensor, mesh) -> None:
     gloo itself)."""
     import torch.distributed as dist
 
-    _counted(t, lambda: dist.all_reduce(t, group=mesh.group))
+    _counted(t, "petal.mesh.all_reduce",
+             lambda: dist.all_reduce(t, group=mesh.group))
 
 
 def psum(parts, mesh) -> torch.Tensor:
@@ -137,11 +141,13 @@ def all_gather(t: torch.Tensor, mesh) -> torch.Tensor:
     out = torch.empty((mesh.world,) + tuple(comm.shape), dtype=comm.dtype,
                       device=comm.device)
     if backend == "nccl":
-        _counted(comm, lambda: dist.all_gather_into_tensor(
-            out, comm, group=mesh.group))
+        _counted(comm, "petal.mesh.all_gather",
+                 lambda: dist.all_gather_into_tensor(out, comm,
+                                                     group=mesh.group))
     else:
-        _counted(comm, lambda: dist.all_gather(
-            list(out.unbind(0)), comm, group=mesh.group))
+        _counted(comm, "petal.mesh.all_gather",
+                 lambda: dist.all_gather(list(out.unbind(0)), comm,
+                                         group=mesh.group))
     return out.to(t.device)
 
 
@@ -221,11 +227,17 @@ def _masked_center(xs: Rows, centering: bool):
     return means, xs.map(lambda s, v, mu: mask_rows(s - mu, v), means)
 
 
+def _sqnorm(s: torch.Tensor) -> torch.Tensor:
+    """``‖s‖²_F`` by one fused reduction: no temporary the size of ``s``
+    (``abs2(s).sum()`` writes and reads one)."""
+    return torch.linalg.vector_norm(s).square()
+
+
 def _centered_sqnorm(xs: Rows, means, n: int):
     """``‖X − 1μᵀ‖²_F`` with the mean-domination guard, reduced over
     the shards."""
     return guarded_sqnorm_from(
-        _reduce(xs, lambda s, v: abs2(s).sum()), means, n,
+        _reduce(xs, lambda s, v: _sqnorm(s)), means, n,
         lambda: _reduce(xs, lambda s, v, mu: abs2(mask_rows(s - mu, v)).sum(),
                         means),
     )

@@ -12,7 +12,12 @@ A :class:`Mesh` is 1-D.  It holds this process's devices, one per
 shard, in order — a device may repeat, so several shards can share one
 card (or the CPU) — and the ``torch.distributed`` process group when one
 is initialized.  Its ``size`` counts the shards of every process; every
-process holds the same number.  Shard ``r·L + i`` (rank r, local index
+process holds the same number.  A matrix reaches the shards in one of two
+forms: whole on every process (:func:`shard_rows`,
+:func:`shard_rows_padded`, or the whole matrix passed to a mesh model's
+``fit``), each process keeping its own shards' rows; or as the rows each
+process already holds (:func:`rows_from_local`), when no process holds
+the whole.  Shard ``r·L + i`` (rank r, local index
 i, L local shards) holds rows ``[(r·L + i)·m, (r·L + i + 1)·m)`` of the
 matrix padded to ``size·m`` rows.  A model fitted on a mesh keeps its
 state on the mesh's first local device.
@@ -34,6 +39,7 @@ __all__ = [
     "make_mesh",
     "shard_rows",
     "shard_rows_padded",
+    "rows_from_local",
     "ROWS",
 ]
 
@@ -80,6 +86,19 @@ class Mesh:
     @property
     def on_accelerator(self) -> bool:
         return any(d.type != "cpu" for d in self.devices)
+
+    def _key(self):
+        return (self.devices, self.group, self.rank, self.world,
+                self.axis_names)
+
+    def __eq__(self, other) -> bool:
+        """Two meshes are one where they hold the same devices in the
+        same process group: a matrix placed on one is fitted on the
+        other."""
+        return isinstance(other, Mesh) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
 
     def __repr__(self) -> str:
         devs = ", ".join(str(d) for d in self.devices)
@@ -305,14 +324,22 @@ def _as_tensor(x) -> torch.Tensor:
 
 def _place(x: torch.Tensor, mesh: Mesh, m: int, n_valid: int) -> Rows:
     """This process's shards of ``x`` (the whole matrix, ``n_valid`` data
-    rows) at ``m`` rows a shard: one copy of each device's row range
-    where ``x`` is elsewhere, views into it where it is there; a shard
-    that runs past the data is a copy padded with zeros."""
+    rows) at ``m`` rows a shard."""
     first = mesh.rank * mesh.local_size
+    return Rows(_carve(x, mesh, m, first * m, n_valid), mesh, n_valid, m)
+
+
+def _carve(x: torch.Tensor, mesh: Mesh, m: int, start: int,
+           stop: int) -> list:
+    """The local shards of ``m`` rows each, shard i holding the rows
+    ``[start + i·m, start + (i + 1)·m)`` of ``x`` below ``stop``: one copy
+    of each device's row range where ``x`` is elsewhere, views into it
+    where it is there; a shard that runs past ``stop`` is a copy padded
+    with zeros."""
     ranges = []  # each shard's data rows [a, b)
     for i in range(mesh.local_size):
-        a = (first + i) * m
-        ranges.append((a, max(a, min(a + m, n_valid))))
+        a = start + i * m
+        ranges.append((a, max(a, min(a + m, stop))))
     copies = {}  # device → (first row, one copy of its shards' rows)
     for dev, (a, b) in zip(mesh.devices, ranges):
         if dev != x.device:
@@ -332,7 +359,7 @@ def _place(x: torch.Tensor, mesh: Mesh, m: int, n_valid: int) -> Rows:
                               dtype=x.dtype, device=dev)
             rows = torch.cat([rows, pad])
         shards.append(rows)
-    return Rows(shards, mesh, n_valid, m)
+    return shards
 
 
 def shard_rows(x, mesh: Mesh) -> Rows:
@@ -378,3 +405,77 @@ def shard_rows_padded(x, mesh: Mesh):
     n = x.shape[0]
     m = -(-n // mesh.size)
     return _place(x, mesh, m, n), n
+
+
+# The dtypes a process may hold rows in, by a code every process agrees
+# on (-1: another dtype, which the fits then refuse).
+_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128,
+           torch.float16, torch.bfloat16)
+
+
+def _dtype_code(dtype: torch.dtype) -> int:
+    return _DTYPES.index(dtype) if dtype in _DTYPES else -1
+
+
+def rows_from_local(local, mesh: Mesh) -> Rows:
+    """The matrix whose rows the processes of ``mesh`` hold between them:
+    ``local`` is this process's own contiguous rows (a 2-D tensor, best
+    already on this process's card, or an array), and the matrix is every
+    process's rows in process order.  No process holds or copies the
+    whole: each one's shards are views into ``local`` where it lives on
+    the shard's device, else one copy of their rows.
+
+    Collective: one gather of every process's row count, width and dtype,
+    so that a width or dtype that differs, or a layout the mesh cannot
+    hold, raises ``InvalidInput`` on every process and leaves none
+    waiting.  ``rows_per_shard`` is the largest share of a shard; each
+    process's rows fill its shards in order, and only the trailing shards
+    of the mesh may hold fewer (zero-padded, masked by ``valid``), so
+    every process before the last that holds rows holds a full share.
+
+    >>> import torch
+    >>> from petal_decomposition_tpu_torch.parallel import make_mesh
+    >>> xs = rows_from_local(torch.ones(5, 2), make_mesh(4, devices=["cpu"] * 4))
+    >>> xs.shape, xs.n_valid, xs.valid
+    ((8, 2), 5, [2, 2, 1, 0])
+    """
+    from ..errors import InvalidInput
+    from ..utils.profiling import span
+
+    with span("petal.mesh.place"):
+        x = _as_tensor(local)
+        flat = x.dim() != 2
+        mine = [-1 if flat else x.shape[0], -1 if flat else x.shape[1],
+                _dtype_code(x.dtype)]
+        if mesh.group is not None:  # a group of one gathers too
+            from .distributed import all_gather
+
+            info = all_gather(torch.tensor(mine, dtype=torch.int64),
+                              mesh).tolist()
+        else:
+            info = [mine]
+        counts = [c for c, _, _ in info]
+        if min(counts) < 0:
+            raise InvalidInput(
+                "rows_from_local takes a 2-D matrix on every process; "
+                f"processes without: {[i for i, c in enumerate(counts) if c < 0]}"
+            )
+        if len({(w, t) for _, w, t in info}) > 1:
+            raise InvalidInput(
+                "inconsistent widths or dtypes across processes: "
+                + ", ".join(f"proc {i}: d={w}, dtype_code={t}"
+                            for i, (_, w, t) in enumerate(info))
+                + f" (this process: {x.dtype})"
+            )
+        m = -(-max(counts) // mesh.local_size)
+        share = m * mesh.local_size
+        short = [i for i, c in enumerate(counts) if c < share]
+        if short and any(counts[i] for i in range(short[0] + 1, len(counts))):
+            raise InvalidInput(
+                "only the trailing processes may hold fewer rows than a "
+                f"full share of {share}; row counts by process: {counts}"
+            )
+        if m == 0:
+            raise InvalidInput("no process holds a row")
+        shards = _carve(x, mesh, m, 0, x.shape[0])
+        return Rows(shards, mesh, sum(counts), m)

@@ -4,9 +4,12 @@
 
 Each process runs the same program, calls :func:`initialize` once
 before it builds a mesh, and :func:`..mesh.make_mesh` then spans every
-process of the group.  In core, every process passes the whole matrix
-to ``fit`` and keeps the rows of its own shards; a stream feeds each
-process's own rows.  Replicated state ends up bitwise equal on every
+process of the group.  In core, a fit takes either form: every process
+passes the whole matrix to ``fit`` and keeps the rows of its own shards,
+or every process places only the rows it holds
+(:func:`..mesh.rows_from_local`) and passes the resulting row shards, so
+that no process holds or copies the whole; a stream feeds each process's
+own rows.  Replicated state ends up bitwise equal on every
 process: the reductions hand each one the same operands, and the small
 solves are deterministic.
 

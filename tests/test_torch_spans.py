@@ -9,6 +9,7 @@ change no bit of any fit.
 """
 
 import json
+import socket
 from collections import Counter
 
 import numpy as np
@@ -271,6 +272,62 @@ def test_device_prefetch_counts_into_the_given_counters(monkeypatch):
     extra = {}
     feed.record(extra)
     assert set(extra) == {"feed_wait_s", "host_copy_s", "staged_bytes"}
+
+
+@pytest.fixture
+def one_rank_group():
+    """A gloo process group of this process alone, left after the test."""
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_placement_and_collectives(tmp_path, one_rank_group):
+    """In a group, placing local rows gathers their shape under
+    ``petal.mesh.place``, every all-reduce of a fit opens
+    ``petal.mesh.all_reduce`` and every gather ``petal.mesh.all_gather``
+    (a group of one calls them too), and the fit's ``extra`` counts its
+    own collectives."""
+    from petal_decomposition_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+        rows_from_local,
+    )
+
+    mesh = make_mesh(devices=["cpu"] * 2)
+    x = torch.from_numpy(_data())
+    model = pt.RandomizedPca(3, seed=1, mesh=mesh)
+    counts = {}
+
+    def run():
+        rows = rows_from_local(x, mesh)
+        calls, nbytes = distributed.collectives.calls, distributed.collectives.bytes
+        model.fit(rows)
+        counts["calls"] = distributed.collectives.calls - calls
+        counts["bytes"] = distributed.collectives.bytes - nbytes
+        return rows
+
+    rows, spans = _traced(tmp_path, run)
+    names = _names(spans)
+    assert names["petal.mesh.place"] == 1
+    assert _parents(spans, "petal.mesh.all_gather") == {"petal.mesh.place"}
+    reduces = [sp for sp in spans if sp[0] == "petal.mesh.all_reduce"]
+    assert reduces and names["petal.mesh.all_gather"] == 1
+    (fit,) = [sp for sp in spans if sp[0] == FIT]
+    assert all(fit[2] <= sp[2] and sp[3] <= fit[3] for sp in reduces)
+    extra = model.last_fit_stats_.extra
+    assert extra["collective_calls"] == counts["calls"] == len(reduces)
+    assert extra["collective_bytes"] == counts["bytes"] > 0
+    assert torch.equal(model.components_, pt.RandomizedPca(
+        3, seed=1, mesh=mesh).fit(x).components_)
 
 
 @pytest.fixture
