@@ -57,6 +57,11 @@ through the entry points a user calls:
 K4, FastICA's fused step update (``csrc/ica_update.cu``), is held
 against the eager update on config-3 steps at k = 64 and at its largest
 k, and timed beside it (``k4``); the config-3 fits count its launches.
+K5, the float32-grade Gram (``csrc/gram_syrk.cu``), is held to the IEEE
+float32 matmul's grade against float64 Grams, across n from its row floor
+up and on the mean-cancellation guard's fused path, held against its
+plain version, and timed beside both (``k5``); the in-core north-star fit
+and the north-star stream count its launches.
 
 K2's σ is checked at the edges of its reach (the JAX kernel's gate), and
 past the gate QR + K2 on R is timed beside K2 on the panel itself
@@ -103,8 +108,9 @@ NI, KI = 100_000, 64  # BASELINE config 3: FastIca, 64 sources × 100k samples
 CUDA = "cuda"
 HBM_BYTES_S = 3.35e12
 # NVIDIA's H100 SXM data sheet: float32 outside the tensor cores, float64
-# on them (DMMA; 34 outside them), bf16 on them (dense).
-PEAK_FLOP_S = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
+# on them (DMMA; 34 outside them), bf16 and TF32 on them (dense).
+PEAK_FLOP_S = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12,
+               "tf32": 495e12}
 
 
 def emit(obj) -> None:
@@ -1384,6 +1390,232 @@ def phase_k4(ctx):
     return {"phase": "k4_vs_eager", "band": K4_BAND, "times": times}
 
 
+# K5's shapes: the in-core cell's X and one stream chunk, at the north
+# star's width.
+K5_ROWS = (1 << 20, 1 << 16)
+K5_D = 4096
+# K5 against its plain version at 65,536 × 4096, largest entry error over
+# the largest entry: 1.08e-6 on an H100.
+K5_PLAIN_BAND = 3e-6
+
+
+def adversarial_data(dev, n, d=K5_D, seed=SEED + 52):
+    """``benchmarks/GRAM_GRADE.json``'s spectrum: column scales
+    log-spaced 30 → 0.03 over the first 64 columns, then 0.03 (κ ≈ 1e3),
+    and column means 300·sin(0.37·j), ten times the largest scale."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    head = torch.logspace(math.log10(30.0), math.log10(0.03), 64)
+    scales = torch.cat([head, torch.full((d - 64,), 0.03)]).to(dev)
+    means = 300.0 * torch.sin(torch.arange(d, device=dev) * 0.37)
+    x = torch.randn(n, d, generator=g, device=dev)
+    return x.mul_(scales).add_(means)
+
+
+def gram_errors(g, ref) -> dict:
+    """``g`` against the float64 Gram ``ref``: the relative Frobenius
+    error and the largest entry error over the largest entry."""
+    diff = g.double() - ref
+    return {"fro": float(diff.norm() / ref.norm()),
+            "max": float(diff.abs().max() / ref.abs().max())}
+
+
+def shifted_data(dev, n, d, seed):
+    """Gaussian columns with scales log-spaced 1 → 0.01, shifted by 0.3:
+    the small columns mean-dominated."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=dev)
+    return x.mul_(torch.logspace(0, -2, d, device=dev)).add_(0.3)
+
+
+def k5_grade_row(ctx, x, ref):
+    """K5's and the IEEE matmul's errors against ``ref`` and the larger
+    of K5's two readings over the matmul's."""
+    with ctx.linalg.ieee_f32():
+        lib = gram_errors(x.mT @ x, ref)
+    got = gram_errors(ctx.k5.gram_syrk(x), ref)
+    return {"k5": got, "ieee_matmul": lib,
+            "ratio": max(got["fro"] / lib["fro"], got["max"] / lib["max"])}
+
+
+def top_sigma_error(gram, mu, n, ref_sigma, k=K):
+    """The largest error of the top-k σ of a centered float32 Gram
+    (``gram`` − n·μμᵀ, its eigenvalues in float64) over σ₁ of
+    ``ref_sigma``."""
+    import torch
+
+    gc = gram.double() - n * torch.outer(mu, mu)
+    s = torch.linalg.eigvalsh(gc).flip(0)[:k].clamp(min=0).sqrt()
+    return float((s - ref_sigma).abs().max() / ref_sigma[0])
+
+
+@phase
+def phase_k5(ctx):
+    """K5's grade: its Gram and the IEEE matmul's (``xc.mT @ xc``, the
+    library yardstick) against the float64 Gram of the same X, raw and
+    centered, on the in-core cell's X (1M × 4096), one stream chunk
+    (65,536 × 4096) and the adversarial spectrum; each K5 reading at most
+    1.1 times the matmul's.  The same across n (16,384 to 262,144) and d
+    (1536 to 4096) on three kinds of X, held from ``MIN_ROWS`` rows and
+    ``MIN_D`` columns; the fused centering at ``MIN_ROWS`` with the
+    mean-cancellation ratio just below the guard's ``"default"`` and
+    ``"high"`` thresholds; the top σ of the in-core X's centered Gram
+    from K5's and the matmul's Gram.  K5 against its plain version at
+    65,536 × 4096.  Device ms of K5, its plain version and the matmul at
+    both shapes (CUDA events behind a spin, medians), and K5's bound:
+    n·d·(d + 1) operations at the TF32 peak against X's bytes; and the
+    two at 262,144 rows for d from 512 to 2048."""
+    import torch
+
+    from petal_decomposition_tpu_torch.parallel.distributed import (
+        _GRAM_GUARD_RMAX,
+    )
+
+    k5 = ctx.k5
+    inputs = {"incore_1Mx4096": lambda: make_data(ctx.dev, n=K5_ROWS[0],
+                                                  d=K5_D, seed=SEED + 51),
+              "stream_chunk_65536x4096": lambda: make_data(
+                  ctx.dev, n=K5_ROWS[1], d=K5_D, seed=SEED + 50),
+              "adversarial_1Mx4096": lambda: adversarial_data(
+                  ctx.dev, K5_ROWS[0])}
+    grade, sigma = {}, {}
+    for name, make in inputs.items():
+        x = make()
+        for form in ("raw", "centered"):
+            if form == "centered":
+                x = x - x.mean(0)
+            ref = f64_moments(x, rows=1 << 15)[2]
+            row = k5_grade_row(ctx, x, ref)
+            require(row["ratio"] <= 1.1,
+                    f"K5 on {name} ({form}): {row}")
+            grade[f"{name}.{form}"] = row
+            if name == "incore_1Mx4096" and form == "raw":
+                # σ of the centered Gram G − n·μμᵀ, as the fit forms it.
+                n = x.shape[0]
+                cs64 = f64_moments(x, rows=1 << 15)[0]
+                mu64 = cs64 / n
+                ref_s = torch.linalg.eigvalsh(
+                    ref - n * torch.outer(mu64, mu64)).flip(0)[:K].sqrt()
+                mu32 = (cs64 / n).float().double()
+                with ctx.linalg.ieee_f32():
+                    sigma["ieee_matmul"] = top_sigma_error(
+                        x.mT @ x, mu32, n, ref_s)
+                sigma["k5"] = top_sigma_error(k5.gram_syrk(x), mu32, n,
+                                              ref_s)
+            del ref
+        del x
+        torch.cuda.empty_cache()
+    # Across n and d, from below the row floor up.
+    sweep, min_d, min_rows = {}, k5.MIN_D, k5.MIN_ROWS
+    k5.MIN_D, k5.MIN_ROWS = 1, 1
+    try:
+        makers = {"low_rank": lambda n, d, s: make_data(ctx.dev, n=n, d=d,
+                                                        seed=s),
+                  "shifted": lambda n, d, s: shifted_data(ctx.dev, n, d, s),
+                  "adversarial": lambda n, d, s: adversarial_data(
+                      ctx.dev, n, d, seed=s)}
+        for d in (1536, 2048, 4096):
+            for n in (1 << 14, 1 << 15, 1 << 16, 1 << 18):
+                for name, make in makers.items():
+                    x = make(n, d, SEED + 70 + n % 1009 + d)
+                    for form in ("raw", "centered"):
+                        if form == "centered":
+                            x = x - x.mean(0)
+                        row = k5_grade_row(
+                            ctx, x, f64_moments(x, rows=1 << 15)[2])
+                        if n >= min_rows and d >= min_d:
+                            require(row["ratio"] <= 1.1,
+                                    f"K5 at {n} × {d}, {name} ({form}): "
+                                    f"{row}")
+                        sweep[f"{d}.{n}.{name}.{form}"] = row
+                    del x
+        # The fused centering G − n·μμᵀ at the row floor, with the
+        # mean-cancellation ratio r = n‖μ‖²/tr(Gc) just below the guard's
+        # thresholds: K5's raw Gram in place of the matmul's.
+        guard = {}
+        for grade_name in ("default", "high"):
+            r = 0.95 * _GRAM_GUARD_RMAX[grade_name]
+            # Unit columns (tr(Gc) ≈ n·d) shifted by √r·u, ‖u‖² ≈ d.
+            x = torch.randn(min_rows, min_d, device=ctx.dev)
+            x.add_(math.sqrt(r) * torch.randn(min_d, device=ctx.dev))
+            cs64, _, g64 = f64_moments(x, rows=1 << 15)
+            mu64 = cs64 / min_rows
+            ref = g64 - min_rows * torch.outer(mu64, mu64)
+            got_r = float(min_rows * mu64.square().sum() / ref.trace())
+            mu = x.mean(0).double()
+            with ctx.linalg.ieee_f32():
+                lib = gram_errors(
+                    (x.mT @ x).double() - min_rows * torch.outer(mu, mu), ref)
+            got = gram_errors(
+                k5.gram_syrk(x).double() - min_rows * torch.outer(mu, mu),
+                ref)
+            ratio = max(got["fro"] / lib["fro"], got["max"] / lib["max"])
+            require(ratio <= 1.1, f"K5 on the fused centering at r = "
+                    f"{got_r}: {got} against the matmul's {lib}")
+            guard[grade_name] = {"r": got_r, "k5": got, "ieee_matmul": lib,
+                                 "ratio": ratio}
+            del x, ref, g64
+    finally:
+        k5.MIN_D, k5.MIN_ROWS = min_d, min_rows
+    torch.cuda.empty_cache()
+    times, err_max = {}, 0.0
+    for n in K5_ROWS:
+        x = make_data(ctx.dev, n=n, d=K5_D)
+        reps, plain_reps = (5, 1) if n == K5_ROWS[0] else (20, 3)
+
+        def ieee():
+            with ctx.linalg.ieee_f32():
+                return x.mT @ x
+
+        if n == K5_ROWS[1]:
+            plain = k5._gram_syrk_plain(x)
+            err_max = rel_max(k5.gram_syrk(x), plain)
+            # The tensor cores truncate where the plain version's IEEE
+            # products round: 1.08e-6 apart on an H100.
+            require(err_max <= K5_PLAIN_BAND,
+                    f"K5 against its plain version {err_max} > "
+                    f"{K5_PLAIN_BAND}")
+            del plain
+        bound_ms, bound_by = bound(
+            n * K5_D * 4, {"tf32": n * K5_D * (K5_D + 1)})
+        times[f"{n}x{K5_D}"] = {
+            "ms": device_ms(lambda: k5.gram_syrk(x), reps),
+            "plain_ms": cuda_ms(lambda: k5._gram_syrk_plain(x), plain_reps),
+            "library_ms": device_ms(ieee, reps),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        del x
+        torch.cuda.empty_cache()
+    # Both at 262,144 rows across d, K5 called below its MIN_D.
+    crossover = {}
+    k5.MIN_D = 1
+    try:
+        for d in (512, 1024, 1536, 2048):
+            x = torch.randn(1 << 18, d, device=ctx.dev)
+
+            def ieee():
+                with ctx.linalg.ieee_f32():
+                    return x.mT @ x
+
+            crossover[d] = {"ms": device_ms(lambda: k5.gram_syrk(x), 10),
+                            "library_ms": device_ms(ieee, 10)}
+            del x
+    finally:
+        k5.MIN_D = min_d
+    ctx.kernels["gram_syrk"].update(
+        max_abs_err=err_max,
+        **times[f"{K5_ROWS[0]}x{K5_D}"])
+    return {"phase": "k5_grade", "chunk_rows": k5.CHUNK_ROWS,
+            "min_d": k5.MIN_D, "min_rows": k5.MIN_ROWS, "grade": grade,
+            "sigma_of_incore_gram": sigma, "sweep": sweep, "guard": guard,
+            "times": times, "crossover_262144_rows": crossover}
+
+
 # -- the single-device surface: complex RandomizedPca, save/load, the
 # host C++ core and nan_debugging ---------------------------------------
 
@@ -1880,12 +2112,14 @@ def phase_stream_north_star(ctx):
     """BASELINE's north-star shape streamed, literally
     ``benchmarks/north_star.py``'s stream: ``RandomizedPca(32).fit_batched``
     over 16 host blocks of 65536 × 4096 float32 (1,048,576 × 4096, 16 GiB),
-    which runs no hand-written kernel (the IEEE-float32 Gram, f32 eighs of
-    two 42×42 matrices).  Fit ms (median of 3) at prefetch depth 2 and 0,
+    whose one hand-written kernel is K5, each block's Gram (16 launches a
+    fit; f32 eighs of two 42×42 matrices besides).  Fit ms (median of 3)
+    at prefetch depth 2 and 0,
     ingest GB/s, the feed's parts (:func:`feed_rates`), one block's
     ``_accum_step`` and Gram alone (CUDA events), the card's busy share
     over a fit (``torch.profiler``), and the in-core fit of the same
-    matrix on the card.  Gates: σ within 1e-4 relative of the float64
+    matrix on the card, which launches K5 once a fit.  Gates: σ within
+    1e-4 relative of the float64
     moments' (the randomized fits' band here; the Gram grade puts
     ≈ eps₃₂·(σ₁/σ₃₂)² ≈ 4e-5 on σ₃₂ at most), within 1e-5·σ₁ of the
     in-core fit at the same seed (the same recovery from two float32
@@ -1894,7 +2128,6 @@ def phase_stream_north_star(ctx):
     import torch
 
     from petal_decomposition_tpu_torch.models import streaming as pst
-    from petal_decomposition_tpu_torch.ops.linalg import ieee_f32
 
     api, dev = ctx.api, ctx.dev
     t0 = time.perf_counter()
@@ -1919,12 +2152,17 @@ def phase_stream_north_star(ctx):
         return ms, model
 
     kernels = {"sketch_moments": ctx.k1, "jacobi_svd": ctx.k2,
-               "jacobi_svd_f64": ctx.k3}
+               "jacobi_svd_f64": ctx.k3, "gram_syrk": ctx.k5}
     fit(2)  # warm-up
     for mod in kernels.values():
         mod.launches = 0
     ms2, m2 = fit_ms(2, 3)
     launches = {name: mod.launches for name, mod in kernels.items()}
+    require(launches == {"sketch_moments": 0, "jacobi_svd": 0,
+                         "jacobi_svd_f64": 0, "gram_syrk": 3 * NS_BLOCKS},
+            f"north-star stream: launches in three fits {launches}, not "
+            f"K5 alone, once a block")
+    ctx.add_launches(launches)
     ms0, m0 = fit_ms(0, 2)
     ctx.ns_stream_sigma = m2.singular_values_
     ctx.ns_stream_components = m2.components_
@@ -1953,8 +2191,7 @@ def phase_stream_north_star(ctx):
     shift = devb.double().mean(0)
     accum_ms = cuda_ms(
         lambda: pst._accum_step(carry, devb, shift, precision="high"), 5)
-    with ieee_f32():
-        gram_ms = cuda_ms(lambda: devb.mT @ devb, 5)
+    gram_ms = cuda_ms(lambda: ctx.k5.gram_syrk(devb), 5)
     del devb, carry
     feed = feed_rates(blocks, dev)
 
@@ -1963,8 +2200,13 @@ def phase_stream_north_star(ctx):
     for i, b in enumerate(blocks):
         x[i * NS_ROWS:(i + 1) * NS_ROWS].copy_(torch.from_numpy(b))
     api.RandomizedPca(K, seed=SEED, device=CUDA).fit(x)  # warm-up
-    incore_ms, _, incore = timed_fits(
-        lambda: api.RandomizedPca(K, seed=SEED, device=CUDA), x, {})
+    incore_ms, incore_launches, incore = timed_fits(
+        lambda: api.RandomizedPca(K, seed=SEED, device=CUDA), x,
+        {"gram_syrk": ctx.k5})
+    require(incore_launches == {"gram_syrk": 3},
+            f"north-star in core: K5 launches in three fits "
+            f"{incore_launches}, not one a fit")
+    ctx.add_launches(incore_launches)
     del x
     torch.cuda.empty_cache()
     s_in = incore.singular_values_.double()
@@ -1972,12 +2214,11 @@ def phase_stream_north_star(ctx):
     require(vs_incore <= 1e-5,
             f"north-star stream vs in-core σ {vs_incore} > 1e-5·σ₁")
     med2 = statistics.median(ms2)
-    # The least time for the stream: its bytes over the link's measured
-    # pinned rate, or 16 Grams at float32's peak outside the tensor cores.
+    # The Grams' rate, counted as full float32 products (2·n·d²).
     flops = 2.0 * NS_N * NS_D * NS_D
     return {"phase": "stream_north_star", "x": [NS_N, NS_D],
             "blocks": [NS_BLOCKS, NS_ROWS], "k": K,
-            "route": "fit_batched: IEEE-f32 Gram per block, f64 carry, "
+            "route": "fit_batched: K5's Gram per block, f64 carry, "
                      "zero-pass Gram recovery",
             "data_s": make_s, "fit_ms_depth2": ms2, "fit_ms_median": med2,
             "fit_ms_depth0": ms0,
@@ -1992,6 +2233,7 @@ def phase_stream_north_star(ctx):
             "compute_idle_share_from_events": 1 - (
                 NS_BLOCKS * accum_ms / med2),
             "incore_fit_ms": incore_ms,
+            "incore_launches_per_3_fits": incore_launches,
             "incore_fit_ms_median": statistics.median(incore_ms),
             "sigma_rel_err_vs_f64": sig, "sigma_vs_incore": vs_incore,
             "mean_shift_ratio": ratio,
@@ -3015,7 +3257,7 @@ PHASES = (phase_k1, phase_slice, phase_default, phase_pca_f64,
           phase_pca_f32_wide, phase_randomized_f64, phase_gram_recovery_f64,
           phase_randomized_complex, phase_serialize, phase_native_offload,
           phase_nan_debugging, phase_fast_ica_config3, phase_fast_ica_card_vs_cpu,
-          phase_k4,
+          phase_k4, phase_k5,
           phase_stream_north_star, phase_stream_exact,
           phase_stream_randomized_f64, phase_partial_fit,
           phase_stream_fast_ica, phase_mesh_one_card, phase_mesh_shards,
@@ -3025,7 +3267,10 @@ KERNELS = {
     "sketch_moments": ("sketch_moments.cu", "sketch_kernel.py:143"),
     "jacobi_svd": ("jacobi_svd.cu", "jacobi_kernels.py:187"),
     "jacobi_svd_f64": ("jacobi_svd_f64.cu", "jacobi_f64_kernel.py:187"),
-    "ica_update": ("ica_update.cu", None),
+    "ica_update": ("ica_update.cu", "none (XLA ops in the JAX package's "
+                   "while_loop)"),
+    "gram_syrk": ("gram_syrk.cu", "none (the Gram finder's XᵀX, an XLA "
+                  "product in the JAX package)"),
 }
 
 
@@ -3037,6 +3282,7 @@ def context():
     import petal_decomposition_tpu_torch as api
     from petal_decomposition_tpu_torch.ops import linalg
     from petal_decomposition_tpu_torch.ops.kernels import (
+        gram_syrk as k5,
         ica_update as k4,
         jacobi_f64_kernel as k3,
         jacobi_kernels as k2,
@@ -3049,15 +3295,15 @@ def context():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        for done in [pool.submit(m.build) for m in (k1, k2, k3, k4)]:
+    with ThreadPoolExecutor(5) as pool:
+        for done in [pool.submit(m.build) for m in (k1, k2, k3, k4, k5)]:
             done.result()
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "kernel_build_s": time.perf_counter() - t0})
     ctx = SimpleNamespace(
-        api=api, linalg=linalg, k1=k1, k2=k2, k3=k3, k4=k4, smi=smi,
+        api=api, linalg=linalg, k1=k1, k2=k2, k3=k3, k4=k4, k5=k5, smi=smi,
         dev=torch.device(CUDA), k2_cases={}, k3_cases={},
         kernels={name: {"launches": 0} for name in KERNELS},
     )
@@ -3077,9 +3323,8 @@ def kernels_line(ctx) -> dict:
         out.append({
             "name": name, "route": "cuda",
             "source": f"petal_decomposition_tpu_torch/csrc/{source}",
-            "replaces": (f"petal_decomposition_tpu/ops/pallas/{replaces}"
-                         if replaces else "none (XLA ops in the JAX "
-                         "package's while_loop)"),
+            "replaces": (replaces if replaces.startswith("none")
+                         else f"petal_decomposition_tpu/ops/pallas/{replaces}"),
             "launches": k["launches"], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -24,6 +24,7 @@ __all__ = [
     "check_rows",
     "n_rows",
     "fit_record",
+    "record",
     "mesh_shards",
     "project_rows",
     "transform_input",
@@ -136,21 +137,30 @@ def n_rows(x) -> int:
 
 
 @contextlib.contextmanager
-def fit_record(model, x, mesh):
-    """:func:`..utils.profiling.record_fit` over the input's data rows;
-    a mesh fit's ``extra`` gains its share of the process's collectives,
-    ``collective_calls`` and ``collective_bytes``."""
+def record(model, n: int, d: int, device, mesh=None):
+    """:func:`..utils.profiling.record_fit`; the fit's ``extra`` gains
+    ``gram_kernel_calls``, the Grams K5 computed in it
+    (:mod:`..ops.kernels.gram_syrk`), and a mesh fit's its share of the
+    process's collectives, ``collective_calls`` and ``collective_bytes``."""
+    from ..ops.kernels import gram_syrk
     from ..parallel.distributed import collectives
     from ..utils.profiling import record_fit
 
-    with record_fit(model, n_rows(x), x.shape[1], model.device) as stats:
+    with record_fit(model, n, d, device) as stats:
+        grams = gram_syrk.calls
         calls, nbytes = collectives.calls, collectives.bytes
         try:
             yield stats
         finally:
+            stats.extra["gram_kernel_calls"] = gram_syrk.calls - grams
             if mesh is not None:
                 stats.extra["collective_calls"] = collectives.calls - calls
                 stats.extra["collective_bytes"] = collectives.bytes - nbytes
+
+
+def fit_record(model, x, mesh):
+    """:func:`record` over the input's data rows."""
+    return record(model, n_rows(x), x.shape[1], model.device, mesh)
 
 
 def mesh_shards(x, mesh):

@@ -460,7 +460,8 @@ class RandomizedPcaBuilder:
 
     def gram_precision(self, precision: str) -> "RandomizedPcaBuilder":
         """``"auto"`` | ``"default"`` | ``"high"`` | ``"highest"`` (all
-        IEEE float32 Grams in the port so far)."""
+        IEEE-float32-grade Grams in the port: K5's 3×TF32 where it takes
+        the matrix)."""
         self._gram_precision = precision
         return self
 

@@ -104,7 +104,7 @@ from ..parallel.distributed import (
 )
 from ..parallel.mesh import Columns
 from ..utils import rng as rng_util
-from ..utils.profiling import record_fit, span
+from ..utils.profiling import span
 from . import _common
 
 __all__ = [
@@ -650,7 +650,8 @@ def _resolve_stream_precision(setting: str, dtype, device_type: str) -> str:
     """Resolve ``"auto"`` once the stream's dtype is known (first chunk):
     ``"high"`` for float32 on the card, ``"highest"`` otherwise — the JAX
     package's accelerator and CPU rules, keyed on the stream's device.
-    Every grade is an IEEE float32 Gram in the port; the grade selects
+    Every grade is an IEEE-float32-grade Gram in the port (K5's where it
+    takes the chunk); the grade selects
     the guard's rating and, for ``"default"``, the float32 carry."""
     if setting != "auto":
         return setting
@@ -883,7 +884,7 @@ def _stream_gram_precision(model) -> str:
 
 def _stream_fit(model, blocks, block_rows, solve):
     _common.check_device(model._device)
-    with record_fit(model, 0, 0, model._device) as stats:
+    with _common.record(model, 0, 0, model._device) as stats:
         model._stream = None  # a full fit restarts any partial_fit stream
         feed = _FeedCounters()
         m = _accumulate_moments(
@@ -951,7 +952,7 @@ def _install_state(model, m: StreamMoments, sigma, vt, k: int) -> None:
 
 def _stream_stats(stats, m: StreamMoments | None, feed: _FeedCounters,
                   n: int = 0, d: int = 0, n_blocks: int = 0) -> None:
-    """A streamed fit's dims and counters on its ``record_fit`` stats:
+    """A streamed fit's dims and counters on its ``_common.record`` stats:
     from the moments pass ``m``, or ``n``, ``d`` and ``n_blocks`` where
     there is none."""
     if m is not None:
@@ -991,7 +992,7 @@ def partial_fit_step(model, x_block, *, block_rows: int | None,
     and the solve, drawing a sub-stream on every process alike.  If the
     solve fails, the rows stay in the stream and the model is unchanged;
     the next successful call includes them.  The call's blocks are its
-    input, coerced before its ``record_fit`` starts, as ``fit`` coerces
+    input, coerced before its ``_common.record`` starts, as ``fit`` coerces
     its matrix; a call with nothing to do records nothing."""
     _check_stream_solver(model)
     st = model._stream
@@ -1013,7 +1014,7 @@ def partial_fit_step(model, x_block, *, block_rows: int | None,
     ))
     if not chunks and st.carry is not None and not st.multihost:
         return
-    with record_fit(model, 0, 0, model._device) as stats:
+    with _common.record(model, 0, 0, model._device) as stats:
         if st.multihost and st.carry is None:
             chunks = list(_multihost_prologue(st, chunks, model._centering))
         feed = _FeedCounters()
@@ -1157,7 +1158,7 @@ def stream_fit_fast_ica(model, data, *, block_rows: int | None = None):
             "in core"
         )
     _common.check_device(model._device)
-    with record_fit(model, 0, 0, model._device) as stats:
+    with _common.record(model, 0, 0, model._device) as stats:
         block_rows = _resolve_block_rows(block_rows, mesh)
         factory = _reiterable_factory(data, block_rows)
         feed = _FeedCounters()

@@ -24,7 +24,9 @@ psum, so a sharded fit agrees with the JAX package's to a relative band
 (1e-10 float64, 1e-5 float32), not bitwise.  The JAX package's in-graph
 ``lax.cond`` guards become host-side branches on one scalar each.
 
-Every ``gram_precision`` grade runs the Gram in IEEE float32 (TF32 off,
+Every ``gram_precision`` grade runs the Gram at IEEE-float32 grade: K5
+(:mod:`..ops.kernels.gram_syrk`, 3×TF32 with float32 chunk sums) where
+it takes the matrix, else the IEEE float32 matmul (TF32 off,
 :func:`..ops.linalg.ieee_f32`); ``_GRAM_GUARD_RMAX`` keeps the JAX
 package's thresholds, which were rated for one bf16 pass and so are
 conservative at float32.
@@ -48,7 +50,7 @@ from ..ops.gram_recovery import (
     gram_subspace as _gram_subspace,
     randomized_gram_recovery,
 )
-from ..ops.kernels import sketch_kernel
+from ..ops.kernels import gram_syrk, sketch_kernel
 from ..ops.linalg import (
     cholesky_qr2,
     cholqr_right_factor,
@@ -388,9 +390,13 @@ _GRAM_GUARD_RMAX = {"default": 2.0, "high": 1e3, "highest": 1e5}
 
 def _gram_of(xc, precision: str):
     """``XᵀX`` for the Gram finder.  Every ``precision`` grade is IEEE
-    float32 here (float64 data stays float64)."""
+    float32 grade here (float64 data stays float64): K5 where
+    :func:`..ops.kernels.gram_syrk.supports` holds, else the IEEE float32
+    matmul."""
     if precision not in _GRAM_GUARD_RMAX:
         raise ValueError(f"unknown gram precision {precision!r}")
+    if gram_syrk.supports(xc):
+        return gram_syrk.gram_syrk(xc)
     with ieee_f32():
         return xc.mT @ xc
 
@@ -550,7 +556,8 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
       float32, ``gram_precision="default"``, within ``supports()`` at the
       rows of one shard); on a mesh K1 runs on every shard.
     * ``gram_precision`` — ``"default"``, ``"high"``, ``"highest"``
-      (all IEEE float32 here; they still select the guard threshold) or
+      (all IEEE-float32 grade here, K5's arithmetic where it takes the
+      Gram; they still select the guard threshold) or
       ``"auto"`` (``"highest"`` for the mixed finder, else
       ``"default"``).
     """
