@@ -1472,9 +1472,7 @@ def phase_k5(ctx):
     two at 262,144 rows for d from 512 to 2048."""
     import torch
 
-    from petal_decomposition_tpu_torch.parallel.distributed import (
-        _GRAM_GUARD_RMAX,
-    )
+    from petal_decomposition_tpu_torch.ops.gram import guard_rmax
 
     k5 = ctx.k5
     inputs = {"incore_1Mx4096": lambda: make_data(ctx.dev, n=K5_ROWS[0],
@@ -1539,7 +1537,7 @@ def phase_k5(ctx):
         # thresholds: K5's raw Gram in place of the matmul's.
         guard = {}
         for grade_name in ("default", "high"):
-            r = 0.95 * _GRAM_GUARD_RMAX[grade_name]
+            r = 0.95 * guard_rmax(grade_name)
             # Unit columns (tr(Gc) ≈ n·d) shifted by √r·u, ‖u‖² ≈ d.
             x = torch.randn(min_rows, min_d, device=ctx.dev)
             x.add_(math.sqrt(r) * torch.randn(min_d, device=ctx.dev))
@@ -2048,8 +2046,7 @@ def feed_rates(blocks, dev):
     pinned ring), a pinned 1 GiB block's copy to the card (CUDA events,
     median of 5), and the host copy of the pageable blocks into a pinned
     buffer (``torch`` ``copy_``, which PyTorch runs on its CPU threads,
-    as the pipeline's worker does).  ``tools/feed_variants.py`` times the
-    alternatives the pipeline does not take."""
+    as the pipeline's worker does)."""
     import torch
 
     from petal_decomposition_tpu_torch.models import streaming as pst
@@ -2190,7 +2187,7 @@ def phase_stream_north_star(ctx):
              torch.zeros((), dtype=torch.float64, device=dev))
     shift = devb.double().mean(0)
     accum_ms = cuda_ms(
-        lambda: pst._accum_step(carry, devb, shift, precision="high"), 5)
+        lambda: pst._accum_step(carry, devb, shift), 5)
     gram_ms = cuda_ms(lambda: ctx.k5.gram_syrk(devb), 5)
     del devb, carry
     feed = feed_rates(blocks, dev)

@@ -15,9 +15,6 @@ the fields the PCA fits read:
       :mod:`.utils.native`) for real SVDs and eighs and the exact
       ``Pca`` fit; the library is built at first use, and a failed build
       raises.
-* ``matmul_precision``: the grade of every float32 matmul in the compute
-  path.  Only ``"highest"`` (IEEE float32, TF32 off) exists so far;
-  choosing TF32 or bf16 grades on Hopper is settled by measurement.
 * ``jacobi_max_sweeps`` / ``check_convergence``: the Jacobi sweep budget
   and whether an unconverged certificate raises ``LinalgError``.
 * ``host_offload_max_elements``: under ``"auto"``, real factorizations
@@ -39,7 +36,6 @@ __all__ = ["config", "Config"]
 @dataclass
 class Config:
     linalg_backend: str = "auto"  # "auto" | "jacobi" | "torch" | "native"
-    matmul_precision: str = "highest"
     # Max Jacobi sweeps before declaring non-convergence (LinalgError
     # analogue of LAPACK info != 0; ref: linalg.rs:84).
     jacobi_max_sweeps: int = 30
@@ -49,11 +45,6 @@ class Config:
     def validate(self) -> None:
         if self.linalg_backend not in ("auto", "jacobi", "torch", "native"):
             raise ValueError(f"unknown linalg backend: {self.linalg_backend}")
-        if self.matmul_precision != "highest":
-            raise ValueError(
-                f"unknown matmul precision: {self.matmul_precision} "
-                "(only 'highest', IEEE float32, is supported)"
-            )
 
 
 config = Config(

@@ -2,8 +2,7 @@
 // one triangle, on the tensor cores.
 //
 // Replaces no TPU kernel.  The JAX package leaves the Gram range finder's
-// XᵀX (parallel/distributed.py: _gram_of) to XLA, which runs a float32
-// product on the TPU as multi-pass bf16.  The port's counterpart was
+// XᵀX to XLA, which runs a float32 product on the TPU as multi-pass bf16.  The port's counterpart was
 // `xc.mT @ xc` in IEEE float32: cuBLAS's SIMT sgemm, both triangles of a
 // symmetric result on the CUDA cores (≈ 52 TFLOP/s of the card's 67).
 //

@@ -62,8 +62,8 @@
 //   has apq = 0 and skips.
 // * float32 (K2) holds c as 1 + (c − 1) and adds x last (`rotate`): c of a
 //   small rotation rounds to 1 in float32, and the norms would grow (1e-5 of
-//   σ₁ on a 632×632 panel); held so, σ stay within 3e-7 of σ₁
-//   (tools/k2_variants.py).
+//   σ₁ on a 632×632 panel); held so, σ stay within 3e-7 of σ₁ (measured
+//   on an H100 against copies of K2 without the choice).
 
 #pragma once
 
@@ -97,7 +97,7 @@ struct Elem;
 // step.  Rows past the count hold zeros, which neither the dot products nor
 // the rotations change, so float32 skips the tests: without their branches
 // the rows' FMAs interleave, 10-18% off a sweep of K2's panels with bitwise
-// the same result (tools/k2_variants.py).  K3 keeps them, and with them its
+// the same result (measured on an H100).  K3 keeps them, and with them its
 // times as measured in PR 3.
 template <>
 struct Elem<double> {
@@ -182,7 +182,7 @@ __device__ __forceinline__ void rr_pair(int players, int round, int i, int& p,
 // (.cg), 8 bytes of float (.cg takes only 16-byte copies).  So the rows,
 // offsets and leading dimensions stay even for both types; four floats go
 // as one 16-byte copy where they are multiples of four (5-7% off a sweep of
-// the 1024×43 and 632×632 panels, tools/k2_variants.py).
+// the 1024×43 and 632×632 panels, measured on an H100).
 __device__ __forceinline__ void cp_async_pair(double* smem, const double* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -279,7 +279,7 @@ __device__ __forceinline__ float2 rotation(float app, float aqq, float apq,
 // small terms are summed first and x added last, in one rounding: (c − 1)·x
 // is below half an ulp of x, and added to an already rounded x − s·y it
 // would be lost every time (‖A·V‖_F then grows by 1e-5 of ‖A‖_F on a
-// 632×632 panel, tools/k2_variants.py).
+// 632×632 panel, measured on an H100).
 __device__ __forceinline__ void rotate(double2 r, double& x, double& y) {
   const double xa = x, xb = y;
   x = r.x * xa - r.y * xb;

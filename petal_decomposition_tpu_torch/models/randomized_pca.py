@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import InvalidInput
+from ..ops import gram as _gram
 from ..ops import linalg as _linalg
 from ..ops.linalg import cholesky_qr2, lu_pl, mdot, qr, svd_flip, svddc
 from ..utils import rng as rng_util
@@ -117,8 +118,7 @@ class RandomizedPca:
             raise ValueError(f"unknown finder precision {finder_precision!r}")
         if range_finder not in ("auto", "direct", "gram"):
             raise ValueError(f"unknown range finder {range_finder!r}")
-        if gram_precision not in ("auto", "default", "high", "highest"):
-            raise ValueError(f"unknown gram precision {gram_precision!r}")
+        _gram.check(gram_precision)
         if gram_projection not in ("auto", "data", "gram"):
             raise ValueError(f"unknown gram projection {gram_projection!r}")
         self._n_components = int(n_components)
@@ -313,15 +313,9 @@ class RandomizedPca:
         final_orth = "cholqr2" if accel_fast else "qr"
         if not accel_fast and accel and x.dtype == torch.float64:
             final_orth = "cholqr2"
-        # The fused sketch+moments kernel (K1) on the Gram-finder path.
-        # No availability probe: on CUDA it builds and launches or
-        # raises.
-        fused_ok = (
-            accel_fast
-            and x.dtype == torch.float32
-            and self._range_finder != "direct"
-            and self._gram_precision in ("auto", "default")
-        )
+        # K1 may run on the data-side Gram route of a large fit on the
+        # accelerator (``randomized_pca_fit`` checks the rest); no
+        # availability probe: on CUDA it builds and launches or raises.
         st = randomized_pca_fit(
             x, omega,
             n_components=k,
@@ -335,7 +329,7 @@ class RandomizedPca:
             range_finder=self._range_finder,
             gram_precision=self._gram_precision,
             gram_projection=self._gram_projection,
-            fused_sketch=fused_ok,
+            fused_sketch=accel_fast,
         )
         return self._install(st, n, d)
 
@@ -349,12 +343,6 @@ class RandomizedPca:
         from ..parallel.distributed import randomized_pca_fit
 
         xs, n = _common.mesh_shards(x, self._mesh)
-        fused_ok = (
-            self._mesh.on_accelerator
-            and x.dtype == torch.float32
-            and self._range_finder != "direct"
-            and self._gram_precision in ("auto", "default")
-        )
         st = randomized_pca_fit(
             xs, omega,
             n_components=self._n_components,
@@ -366,7 +354,7 @@ class RandomizedPca:
             range_finder=self._range_finder,
             gram_precision=self._gram_precision,
             gram_projection=self._gram_projection,
-            fused_sketch=fused_ok,
+            fused_sketch=self._mesh.on_accelerator,
         )
         return self._install(st, n, x.shape[1])
 
@@ -459,9 +447,8 @@ class RandomizedPcaBuilder:
         return self
 
     def gram_precision(self, precision: str) -> "RandomizedPcaBuilder":
-        """``"auto"`` | ``"default"`` | ``"high"`` | ``"highest"`` (all
-        IEEE-float32-grade Grams in the port: K5's 3×TF32 where it takes
-        the matrix)."""
+        """``"auto"`` | ``"default"`` | ``"high"`` | ``"highest"``
+        (:mod:`..ops.gram`)."""
         self._gram_precision = precision
         return self
 

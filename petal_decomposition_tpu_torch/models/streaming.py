@@ -42,10 +42,10 @@ package's:
   with δ = μ − μ̂ ≈ 0; the residual ratio r = n‖δ‖²/tr(Gc) is reported
   as ``last_fit_stats_.extra["mean_shift_ratio"]`` and guarded
   (:func:`_check_shift_ratio`).
-* The Gram and moments are carried in float64 across chunks; only the
-  explicit ``gram_precision="default"`` grade on float32 data on the card
-  carries the Gram, and sums each chunk's moments, in float32.  The
-  factorization runs at the stream's dtype.
+* The Gram and moments are carried across chunks in the grade's
+  :func:`..ops.gram.carry_dtype` (float64 but for the explicit
+  ``"default"`` grade on float32 data on the card).  The factorization
+  runs at the stream's dtype.
 * σ come off the Gram (σ = √λ): float64 streams keep ~1e-9-grade σ,
   float32 ones are Gram-grade.  The streamed randomized fit rebuilds the
   in-core zero-pass recovery from the Gram's l×l algebra
@@ -90,18 +90,14 @@ import numpy as np
 import torch
 
 from ..errors import InvalidInput, LinalgError
+from ..ops import gram as _gram
 from ..ops import linalg as _linalg
 from ..ops.gram_recovery import (
     flip_components as _flip_components,
     randomized_gram_recovery as _randomized_solve,
 )
 from ..ops.linalg import eigh_psd_jit_cert, mdot
-from ..parallel.distributed import (
-    _GRAM_GUARD_RMAX,
-    _gram_of,
-    all_gather,
-    psum,
-)
+from ..parallel.distributed import all_gather, psum
 from ..parallel.mesh import Columns
 from ..utils import rng as rng_util
 from ..utils.profiling import span
@@ -122,28 +118,19 @@ _DEFAULT_BLOCK_ROWS = 65536
 _POLL_S = 0.1
 
 
-def _accum_step(carry, block, shift, *, precision: str, mesh=None) -> None:
+def _accum_step(carry, block, shift, *, mesh=None) -> None:
     """Fold one chunk into ``carry = (g, s, sq)`` in place: the shifted
     Gram and the first and second moments.  ``s`` and ``sq`` are float64;
-    ``g`` is float64, or float32 for the ``"default"`` grade on float32
-    data on the card, where each chunk's moments are summed in float32
-    too and widened (the JAX package's rule, which its TPU cost set: an
-    emulated float64 add).  Everywhere else each chunk's moments are
-    summed in float64.  With a (one-process) ``mesh`` the chunk is split
-    into row shards on its devices and their moments summed in mesh
-    order; without one it is a single shard."""
+    each chunk's moments are summed in ``g``'s dtype, the grade's carry
+    (:func:`_init_stream_carry`), and widened.  With a (one-process)
+    ``mesh`` the chunk is split into row shards on its devices and their
+    moments summed in mesh order; without one it is a single shard."""
     g, s, sq = carry
-    moment_dtype = (
-        torch.float32
-        if (precision == "default" and block.dtype == torch.float32
-            and block.device.type != "cpu")
-        else s.dtype
-    )
 
     def moments(part, shift_d):
         xb = part - shift_d.to(part.dtype)
-        return (_gram_of(xb, precision), xb.sum(0, dtype=moment_dtype),
-                (xb * xb).sum(dtype=moment_dtype))
+        return (_gram.gram(xb), xb.sum(0, dtype=g.dtype),
+                (xb * xb).sum(dtype=g.dtype))
 
     devices = (block.device,) if mesh is None else mesh.devices
     each = [moments(p.to(dev), shift.to(dev)) for p, dev in
@@ -646,32 +633,16 @@ def _fold_process_moments(g, s, sq, n: int, n_blocks: int, mesh):
             int(counts[:, 0].sum()), int(counts[:, 1].sum()))
 
 
-def _resolve_stream_precision(setting: str, dtype, device_type: str) -> str:
-    """Resolve ``"auto"`` once the stream's dtype is known (first chunk):
-    ``"high"`` for float32 on the card, ``"highest"`` otherwise — the JAX
-    package's accelerator and CPU rules, keyed on the stream's device.
-    Every grade is an IEEE-float32-grade Gram in the port (K5's where it
-    takes the chunk); the grade selects
-    the guard's rating and, for ``"default"``, the float32 carry."""
-    if setting != "auto":
-        return setting
-    return (
-        "high"
-        if np.dtype(dtype) == np.float32 and device_type != "cpu"
-        else "highest"
-    )
-
-
 def _init_stream_carry(st: _StreamState, block, centering: bool,
                        precision: str) -> None:
     """First-chunk setup: the stream's width and dtype, the resolved Gram
     grade, the provisional shift (the first chunk's column mean, taken on
-    the device) and the accumulators."""
+    the device) and the accumulators, the Gram in the grade's carry
+    dtype."""
     st.d = block.shape[1]
     st.dtype = _numpy_dtype(block.dtype)
-    st.precision = precision = _resolve_stream_precision(
-        precision, st.dtype, st.device.type
-    )
+    st.precision = _gram.resolve(precision, block.dtype, st.device.type,
+                                 stream=True)
     f64 = torch.float64
     dev = block.device
     if st.shift is None:  # a multi-host prologue sets it for every process
@@ -680,12 +651,7 @@ def _init_stream_carry(st: _StreamState, block, centering: bool,
             if centering
             else torch.zeros((st.d,), dtype=f64, device=dev)
         )
-    g_dtype = (
-        torch.float32
-        if (precision == "default" and block.dtype == torch.float32
-            and dev.type != "cpu")
-        else f64
-    )
+    g_dtype = _gram.carry_dtype(st.precision, block.dtype, dev.type)
     st.carry = (
         torch.zeros((st.d, st.d), dtype=g_dtype, device=dev),
         torch.zeros((st.d,), dtype=f64, device=dev),
@@ -709,8 +675,7 @@ def _accumulate_chunks(st: _StreamState, chunks, centering: bool,
                     f"got {block.shape[1]}"
                 )
             with span("petal.stream.accum"):
-                _accum_step(st.carry, block, st.shift,
-                            precision=st.precision, mesh=st.put_mesh)
+                _accum_step(st.carry, block, st.shift, mesh=st.put_mesh)
             st.n += block.shape[0]
             st.n_blocks += 1
 
@@ -720,7 +685,7 @@ def _check_shift_ratio(m: StreamMoments) -> None:
     r = n‖δ‖²/tr(Gc) past the grade's rating, where the re-centering
     cancels catastrophically.  A single pass cannot re-read the data, so
     it fails loudly before any model state changes."""
-    rmax = _GRAM_GUARD_RMAX[m.precision]
+    rmax = _gram.guard_rmax(m.precision)
     r = float(m.shift_ratio)
     if r > rmax:
         raise LinalgError(

@@ -2,8 +2,7 @@
 triangle, on Hopper's tensor cores.
 
 It replaces no TPU kernel: the JAX package leaves the Gram range
-finder's ``XᵀX`` (``parallel/distributed.py::_gram_of``) to XLA.  The
-port ran it as ``xc.mT @ xc`` in IEEE float32, cuBLAS's SIMT sgemm:
+finder's ``XᵀX`` to XLA.  The port ran it as ``xc.mT @ xc`` in IEEE float32, cuBLAS's SIMT sgemm:
 both triangles of a symmetric result on the CUDA cores.  The kernel
 (``csrc/gram_syrk.cu``: persistent CTAs over the upper-triangle 128 ×
 128 tiles, TMA-fed ``wgmma`` m64n128k8 in TF32) splits each element as

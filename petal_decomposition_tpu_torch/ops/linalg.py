@@ -56,13 +56,13 @@ __all__ = [
 def ieee_f32():
     """Run float32 matmuls inside the block in IEEE float32.
 
-    Sets PyTorch's float32 matmul precision to ``config.matmul_precision``
-    (``"highest"``: TF32 off) for the duration of the block, asserts it
-    took effect, and restores the caller's setting afterwards — the
-    process-wide flag is never left flipped.
+    Sets PyTorch's float32 matmul precision to ``"highest"`` (TF32 off)
+    for the duration of the block, asserts it took effect, and restores
+    the caller's setting afterwards — the process-wide flag is never left
+    flipped.
     """
     prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision(config.matmul_precision)
+    torch.set_float32_matmul_precision("highest")
     try:
         if torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError("TF32 is still enabled for float32 matmuls")
@@ -72,7 +72,7 @@ def ieee_f32():
 
 
 def mdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Matmul at the configured precision (``"highest"``: IEEE float32).
+    """Matmul in IEEE float32 (:func:`ieee_f32`).
 
     >>> a = torch.arange(6.0).reshape(2, 3)
     >>> bool(torch.allclose(mdot(a, a.T), a @ a.T))

@@ -22,14 +22,8 @@ sharding): means divide by the true count and every X·M product is
 re-zeroed on padded rows.  Reductions run in another order than XLA's
 psum, so a sharded fit agrees with the JAX package's to a relative band
 (1e-10 float64, 1e-5 float32), not bitwise.  The JAX package's in-graph
-``lax.cond`` guards become host-side branches on one scalar each.
-
-Every ``gram_precision`` grade runs the Gram at IEEE-float32 grade: K5
-(:mod:`..ops.kernels.gram_syrk`, 3×TF32 with float32 chunk sums) where
-it takes the matrix, else the IEEE float32 matmul (TF32 off,
-:func:`..ops.linalg.ieee_f32`); ``_GRAM_GUARD_RMAX`` keeps the JAX
-package's thresholds, which were rated for one bf16 pass and so are
-conservative at float32.
+``lax.cond`` guards become host-side branches on one scalar each.  The
+Gram and its grade's rules are :mod:`..ops.gram`'s.
 """
 
 from __future__ import annotations
@@ -38,6 +32,7 @@ import math
 
 import torch
 
+from ..ops import gram as _gram
 from ..ops.centered import (
     _SQNORM_GUARD_RMAX,
     abs2,
@@ -50,13 +45,12 @@ from ..ops.gram_recovery import (
     gram_subspace as _gram_subspace,
     randomized_gram_recovery,
 )
-from ..ops.kernels import gram_syrk, sketch_kernel
+from ..ops.kernels import sketch_kernel
 from ..ops.linalg import (
     cholesky_qr2,
     cholqr_right_factor,
     eigh_psd_jit_cert,
     flip_signs,
-    ieee_f32,
     lu_pl,
     mdot,
     svd_flip,
@@ -381,52 +375,31 @@ def _resolve_gram_projection(gram_projection: str, range_finder: str,
     return "data"
 
 
-# Mean-cancellation guard thresholds per Gram precision: the fused
-# uncentered Gram subtracts n·μμᵀ, losing ~(1 + r) of its input grade
-# where r = n‖μ‖²/tr(Gc); beyond these ratios the subspace operator is
-# recomputed from an explicitly centered copy.
-_GRAM_GUARD_RMAX = {"default": 2.0, "high": 1e3, "highest": 1e5}
-
-
-def _gram_of(xc, precision: str):
-    """``XᵀX`` for the Gram finder.  Every ``precision`` grade is IEEE
-    float32 grade here (float64 data stays float64): K5 where
-    :func:`..ops.kernels.gram_syrk.supports` holds, else the IEEE float32
-    matmul."""
-    if precision not in _GRAM_GUARD_RMAX:
-        raise ValueError(f"unknown gram precision {precision!r}")
-    if gram_syrk.supports(xc):
-        return gram_syrk.gram_syrk(xc)
-    with ieee_f32():
-        return xc.mT @ xc
-
-
 def _gram_moments(xs: Rows, centering: bool, fuse_centering: bool,
                   gram_precision: str, n: int):
     """``(means, G_centered, total_variance)`` for the Gram range finder.
 
     With fused centering the centered Gram is ``XᵀX − n·μμᵀ``, which
     loses ~(1 + r) of the Gram's input grade at r = n‖μ‖²/tr(Gc); past
-    the per-precision threshold it is recomputed from an explicitly
-    centered copy.
+    the grade's :func:`..ops.gram.guard_rmax` it is recomputed from an
+    explicitly centered copy.
     """
     if not fuse_centering:
         means, xc = _masked_center(xs, centering)
         return (means,
-                _reduce(xc, lambda s, v: _gram_of(s, gram_precision)),
+                _reduce(xc, lambda s, v: _gram.gram(s)),
                 _reduce(xc, lambda s, v: (s * s).sum()))
     means = _means(xs, centering)
     tv = _centered_sqnorm(xs, means, n)
-    g_sub = (_reduce(xs, lambda s, v: _gram_of(s, gram_precision))
+    g_sub = (_reduce(xs, lambda s, v: _gram.gram(s))
              - n * torch.outer(means, means))
     if centering:
         r = n * (means * means).sum() / torch.clamp(
             torch.diagonal(g_sub).sum(), min=1e-30
         )
-        if float(r) > _GRAM_GUARD_RMAX[gram_precision]:
+        if float(r) > _gram.guard_rmax(gram_precision):
             g_sub = _reduce(
-                xs, lambda s, v, mu: _gram_of(mask_rows(s - mu, v),
-                                              gram_precision), means)
+                xs, lambda s, v, mu: _gram.gram(mask_rows(s - mu, v)), means)
     return means, g_sub, tv
 
 
@@ -445,7 +418,7 @@ def _fused_gram_flow(xs: Rows, omega, centering: bool, n_power_iters: int,
     threshold the operator, subspace and sketch are redone from an
     explicitly centered copy.
     """
-    g_raw = _reduce(xs, lambda s, v: _gram_of(s, gram_precision))
+    g_raw = _reduce(xs, lambda s, v: _gram.gram(s))
     w = _gram_subspace(g_raw, omega, n_power_iters)
     y_raw, colsum, sq = sketch_kernel.fused_sketch_moments_on(
         xs, w.contiguous())
@@ -467,11 +440,10 @@ def _fused_gram_flow(xs: Rows, omega, centering: bool, n_power_iters: int,
                         means),
     )
     r = msq / torch.clamp(tv, min=1e-30)
-    if float(r) > _GRAM_GUARD_RMAX[gram_precision]:
+    if float(r) > _gram.guard_rmax(gram_precision):
         xc = xs.map(lambda s, v, mu: mask_rows(s - mu, v), means)
-        w_e = _gram_subspace(
-            _reduce(xc, lambda s, v: _gram_of(s, gram_precision)), omega,
-            n_power_iters)
+        w_e = _gram_subspace(_reduce(xc, lambda s, v: _gram.gram(s)), omega,
+                             n_power_iters)
         return means, tv, xc.map(
             lambda s, v, we: torch.cat([mdot(s, we), ones_col(s, v)], dim=1),
             w_e)
@@ -553,13 +525,11 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
       B = QᵀX against the data), ``"gram"`` (zero-pass l×l recovery) or
       ``"auto"``.
     * ``fused_sketch`` — allow K1 on the data-side Gram route (real
-      float32, ``gram_precision="default"``, within ``supports()`` at the
-      rows of one shard); on a mesh K1 runs on every shard.
-    * ``gram_precision`` — ``"default"``, ``"high"``, ``"highest"``
-      (all IEEE-float32 grade here, K5's arithmetic where it takes the
-      Gram; they still select the guard threshold) or
-      ``"auto"`` (``"highest"`` for the mixed finder, else
-      ``"default"``).
+      float32, fused centering, a grade K1 may sketch at, within
+      ``supports()`` at the rows of one shard); on a mesh K1 runs on
+      every shard.
+    * ``gram_precision`` — ``"auto"``, ``"default"``, ``"high"`` or
+      ``"highest"``: :mod:`..ops.gram` resolves it and holds its rules.
     """
     xs = as_rows(x, n_valid)
     n, d = xs.n_valid, xs.shape[1]
@@ -581,10 +551,8 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
         full_f64=xs.dtype == torch.float64 and not mixed,
         is_complex=xs.is_complex(),
     )
-    if gram_precision == "auto":
-        gram_precision = "highest" if mixed else "default"
-    if gram_precision not in _GRAM_GUARD_RMAX:
-        raise ValueError(f"unknown gram precision {gram_precision!r}")
+    gram_precision = _gram.resolve(gram_precision, xs.dtype, dev,
+                                   mixed=mixed)
     gram_projection = _resolve_gram_projection(
         gram_projection, range_finder, mixed, dev
     )
@@ -633,7 +601,7 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
                                            else s.to(f32), v),
                 means.to(f32))
             if range_finder == "gram":
-                g_sub = _reduce(xc32, lambda s, v: _gram_of(s, gram_precision))
+                g_sub = _reduce(xc32, lambda s, v: _gram.gram(s))
                 w = _gram_subspace(g_sub, omega.to(f32), n_power_iters)
                 q = xc32.map(lambda s, v, ww: mdot(s, ww), w)
             else:
@@ -648,7 +616,7 @@ def randomized_pca_fit(x, omega, *, n_components: int, centering: bool = True,
             use_fused = (
                 fused_sketch
                 and fuse_centering
-                and gram_precision == "default"
+                and _gram.k1_allowed(gram_precision)
                 and xs.dtype == torch.float32
                 and sketch_kernel.supports(xs.rows_per_shard, d, l, xs.dtype)
             )

@@ -2,7 +2,7 @@
 (``ops/kernels/gram_syrk.py``): its TF32 rounding; its plain version
 against a float64 Gram, and its exact symmetry; which matrices
 ``supports`` takes (from ``MIN_ROWS`` rows and ``MIN_D`` columns);
-``_gram_of`` sending only those to it; the Grams a fit counts in
+``ops.gram.gram`` sending only those to it; the Grams a fit counts in
 ``extra["gram_kernel_calls"]``, with fits routed through the plain
 version by monkeypatching ``supports``; and, on a CUDA card, the kernel
 against a float64 Gram on ragged shapes, its bits, the mean-dominated
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import petal_decomposition_tpu_torch as pt
+from petal_decomposition_tpu_torch.ops import gram as pgram
 from petal_decomposition_tpu_torch.ops.kernels import gram_syrk as k5
 from petal_decomposition_tpu_torch.ops.linalg import ieee_f32
 from petal_decomposition_tpu_torch.parallel import distributed as dist
@@ -160,7 +161,7 @@ def test_gram_of_sends_only_what_supports_takes(monkeypatch, takes):
     monkeypatch.setattr(k5, "supports", lambda x: seen.append(x) or takes)
     x = _data(600, 20, seed=5)
     before = k5.calls
-    g = dist._gram_of(x, "default")
+    g = pgram.gram(x)
     assert seen and seen[0] is x
     assert k5.calls == before + takes
     want = k5._gram_syrk_plain(x) if takes else _ieee(x)
@@ -170,7 +171,7 @@ def test_gram_of_sends_only_what_supports_takes(monkeypatch, takes):
 def test_gram_of_keeps_float64_on_the_matmul(k5_on_cpu):
     x = _data(300, 10, seed=6).double()
     before = k5.calls
-    g = dist._gram_of(x, "highest")
+    g = pgram.gram(x)
     assert k5.calls == before and g.dtype == torch.float64
 
 
@@ -215,7 +216,7 @@ def test_partial_fit_counts_its_own_chunks(k5_on_cpu):
 
 
 def test_the_mean_dominated_guard_takes_a_second_gram(k5_on_cpu):
-    """Fused centering past ``_GRAM_GUARD_RMAX``: the Gram of X, then
+    """Fused centering past ``ops.gram.guard_rmax``: the Gram of X, then
     the Gram of an explicitly centered copy."""
     x = _data(2000, 16, seed=11, mean=50.0)
     before = k5.calls
@@ -375,7 +376,7 @@ def test_below_the_row_floor_the_gram_stays_on_the_matmul(cuda_device):
     x = _shifted(k5.MIN_ROWS - 32, k5.MIN_D, 19, cuda_device)
     assert not k5.supports(x)
     before = k5.launches
-    g = dist._gram_of(x, "default")
+    g = pgram.gram(x)
     torch.cuda.synchronize()
     assert k5.launches == before
     assert torch.equal(g, _ieee(x))
@@ -388,7 +389,7 @@ def test_the_guard_ratio_holds_at_the_row_floor(cuda_device, grade):
     threshold, at the fewest rows K5 takes: K5's centered Gram at most
     1.1 times as far from float64 as the matmul's."""
     n, d = k5.MIN_ROWS, k5.MIN_D
-    r = 0.95 * dist._GRAM_GUARD_RMAX[grade]
+    r = 0.95 * pgram.guard_rmax(grade)
     g = torch.Generator(device=cuda_device).manual_seed(20)
     x = torch.randn(n, d, generator=g, device=cuda_device)
     x += r**0.5 * torch.randn(d, generator=g, device=cuda_device)
@@ -397,7 +398,7 @@ def test_the_guard_ratio_holds_at_the_row_floor(cuda_device, grade):
     mu64 = x64.mean(0)
     ref = x64.mT @ x64 - n * torch.outer(mu64, mu64)
     assert float(n * mu64.square().sum() / ref.trace()) < (
-        dist._GRAM_GUARD_RMAX[grade])
+        pgram.guard_rmax(grade))
 
     def err(gram):
         diff = gram.double() - n * torch.outer(mu, mu) - ref

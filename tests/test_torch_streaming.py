@@ -29,6 +29,7 @@ from petal_decomposition_tpu.utils import rng as jax_rng
 import petal_decomposition_tpu_torch as pt
 from petal_decomposition_tpu_torch.errors import InvalidInput, LinalgError
 from petal_decomposition_tpu_torch.models import streaming as pst
+from petal_decomposition_tpu_torch.ops import gram as pgram
 from petal_decomposition_tpu_torch.utils import rng as port_rng
 
 F64_BAND = 1e-10
@@ -563,7 +564,10 @@ def test_stream_gram_precision_resolution(monkeypatch):
     """``"auto"`` resolves per dtype and device at the first chunk:
     ``"high"`` for float32 on the card, ``"highest"`` for float64 and on
     the CPU — the JAX package's rules; explicit settings pass through."""
-    res = pst._resolve_stream_precision
+    def res(setting, dtype, device_type):
+        return pgram.resolve(setting, pst._torch_dtype(dtype), device_type,
+                             stream=True)
+
     assert res("default", np.float32, "cuda") == "default"
     assert res("high", np.float64, "cpu") == "high"
     assert res("auto", np.float32, "cuda") == "high"
@@ -596,7 +600,7 @@ def test_knobless_pca_streams_at_highest_unlike_jax_partial_fit(monkeypatch):
     jax_setting = jst._stream_gram_precision(jpd.Pca(2))
     assert jst._resolve_stream_precision(jax_setting, np.float32) == "high"
     setting = pst._stream_gram_precision(_pca(2))
-    assert pst._resolve_stream_precision(setting, np.float32, "cuda") \
+    assert pgram.resolve(setting, torch.float32, "cuda", stream=True) \
         == "highest"
     m = _pca(2).partial_fit(_data(n=256, d=8, dtype=np.float32),
                             block_rows=128)
