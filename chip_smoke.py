@@ -1016,7 +1016,8 @@ def sources_recovered(p) -> float:
 def ica_step_split(fi, linalg, x1, reps=20):
     """Device ms (CUDA events, median of ``reps``) of the parts of one
     FastIca step at a fixed W on the whitened k×n ``x1``: W·X, the
-    logcosh contrast, G·Xᵀ, each decorrelation, whole steps, and, by the
+    logcosh contrast, G·Xᵀ, the sums as the step takes them (K6 in
+    float32), each decorrelation, whole steps, and, by the
     host clock over ``reps`` steps, the cost of reading ``lim`` on the
     host every step."""
     import torch
@@ -1034,6 +1035,7 @@ def ica_step_split(fi, linalg, x1, reps=20):
         "w_times_x": cuda_ms(lambda: linalg.mdot(w, x1), reps),
         "contrast": cuda_ms(lambda: fi._contrast_sums("logcosh", wx), reps),
         "g_times_xt": cuda_ms(lambda: linalg.mdot(gwtx, x1.mT), reps),
+        "sums": cuda_ms(lambda: fi._block_sums(w, x1, "logcosh"), reps),
         "decorrelation_ns": cuda_ms(lambda: ns(upd), reps),
         "decorrelation_eigh": cuda_ms(lambda: eigh(upd), reps),
         "step_ns": cuda_ms(lambda: fi._step(w, x1, "logcosh", ns, 1 / n),
@@ -1093,7 +1095,8 @@ def phase_fast_ica_config3(ctx):
     xs = {"float64": s @ a.mT}
     del s
     xs["float32"] = xs["float64"].float()
-    kernels = {"jacobi_svd": k2, "jacobi_svd_f64": k3, "ica_update": ctx.k4}
+    kernels = {"jacobi_svd": k2, "jacobi_svd_f64": k3, "ica_update": ctx.k4,
+               "ica_sums": ctx.k6}
 
     # The panels the fits hand K2 and K3 (the warm-up fits).
     ctx.k3_cases["fast_ica_gram_64x64"] = kernel_inputs(
@@ -1139,6 +1142,10 @@ def phase_fast_ica_config3(ctx):
                     require(c[kname] > 0, f"FastIca {name} launched no {kname}")
                 require(not k4_every_step or c["ica_update"] == it,
                         f"FastIca {name}: {c['ica_update']} K4 launches in "
+                        f"{it} steps")
+                # A float32 step's sums are one K6 launch.
+                require(dtype != "float32" or c["ica_sums"] == it,
+                        f"FastIca {name}: {c['ica_sums']} K6 launches in "
                         f"{it} steps")
                 ctx.add_launches(c)
             comp = model.components_.double()
@@ -1308,11 +1315,11 @@ def ns_eager(m):
     return fi.symmetric_decorrelation_ns(m)
 
 
-def k4_step(dev, k, seed, steps=3):
-    """``(w, gx, gsum, p_inv)`` of a float32 FastIca step at width ``k``:
-    config 3's whitened table at k = 64 (``ica32_data``), else ``k``
-    whitened Laplace sources of ``NI`` samples (κ(A) = 4 as config 3);
-    W from a decorrelated Gaussian W₀ after ``steps`` eager steps."""
+def ica_step_state(dev, k, seed, steps=3):
+    """``(w, x1)`` of a float32 FastIca step at width ``k``: X₁ config
+    3's whitened table at k = 64 (``ica32_data``), else ``k`` whitened
+    Laplace sources of ``NI`` samples (κ(A) = 4 as config 3); W from a
+    decorrelated Gaussian W₀ after ``steps`` eager steps."""
     import torch
 
     from petal_decomposition_tpu_torch.models import fast_ica as fi
@@ -1334,8 +1341,16 @@ def k4_step(dev, k, seed, steps=3):
 
     for _ in range(steps):
         w, _ = fi._step(w, x1, "logcosh", ns_eager, 1.0 / NI)
-    gwtx, gsum = fi._contrast_sums("logcosh", mdot(w, x1))
-    return w, mdot(gwtx, x1.mT), gsum, 1.0 / NI
+    return w, x1
+
+
+def k4_step(dev, k, seed, steps=3):
+    """``(w, gx, gsum, p_inv)`` of the step :func:`ica_step_state`
+    reaches, its sums the host loop's without K6."""
+    from petal_decomposition_tpu_torch.ops.kernels import ica_sums
+
+    w, x1 = ica_step_state(dev, k, seed, steps)
+    return (w, *ica_sums._ica_sums_plain(w, x1, "logcosh"), 1.0 / NI)
 
 
 # K4's check band: W1 and lim against the eager update (the test file's,
@@ -1388,6 +1403,95 @@ def phase_k4(ctx):
         **{key: times[f"k{KI}"][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
     return {"phase": "k4_vs_eager", "band": K4_BAND, "times": times}
+
+
+# K6's check band: gx and gsum against the host loop's sums on the card,
+# the largest entry difference over the largest entry (K6's 3×TF32
+# products and the IEEE matmuls, each ≈ 1e-6 from float64).
+K6_BAND = 1e-5
+
+
+def k6_grade(w, x1, fun, k6):
+    """K6's sums and the host loop's IEEE-float32 sums against the float64
+    sums of the same float32 operands: the largest entry error over the
+    largest entry, for gx and for gsum."""
+    from petal_decomposition_tpu_torch.models import fast_ica as fi
+
+    wd, xd = w.double(), x1.double()
+    g, ref_gsum = fi._contrast_sums(fun, wd @ xd)
+    ref_gx = g @ xd.mT
+    out = {}
+    for name, (gx, gsum) in (("k6", k6.ica_sums(w, x1, fun)),
+                             ("ieee", k6._ica_sums_plain(w, x1, fun))):
+        out[name] = {"gx": rel_max(gx.double(), ref_gx),
+                     "gsum": rel_max(gsum.double(), ref_gsum)}
+    return out
+
+
+@phase
+def phase_k6(ctx):
+    """K6 against its plain version (the host loop's seven-launch sums:
+    two IEEE-float32 matmuls, the contrast, the g′ row sums) on config-3
+    steps at k = 64 and at ``K_MAX``: the largest relative difference of
+    gx and of gsum, and the same bits on a second call; K6's and the IEEE
+    sums' grade against float64 sums of the same operands (three
+    contrasts at k = 64); the device time of each (CUDA events behind a
+    spin of the card, median of 20), their time as the loop sees them
+    (CUDA events, median of 20), and K6's bound, 4·k²·n float32
+    operations at 67 TFLOP/s against X₁'s bytes at 3.35 TB/s.  Then one
+    float32 config-3 fit: K6 launches ``n_iter_`` times and the fit's
+    stats count them."""
+    import torch
+
+    k6 = ctx.k6
+    times, err_max = {}, 0.0
+    for k in (KI, k6.K_MAX):
+        w, x1 = ica_step_state(ctx.dev, k, SEED + 60 + k)
+        gx, gsum = k6.ica_sums(w, x1, "logcosh")
+        again = k6.ica_sums(w, x1, "logcosh")
+        p_gx, p_gsum = k6._ica_sums_plain(w, x1, "logcosh")
+        torch.cuda.synchronize()
+        gx_err = rel_max(gx.double(), p_gx.double())
+        gsum_err = rel_max(gsum.double(), p_gsum.double())
+        require(gx_err < K6_BAND and gsum_err < K6_BAND,
+                f"K6 at k = {k}: gx {gx_err}, gsum {gsum_err} from the "
+                "plain sums")
+        require(torch.equal(gx, again[0]) and torch.equal(gsum, again[1]),
+                f"K6 at k = {k}: a second call gave other bits")
+        err_max = max(err_max, gx_err, gsum_err)
+        grade = {fun: k6_grade(w, x1, fun, k6)
+                 for fun in (k6.CONTRASTS if k == KI else ("logcosh",))}
+        n = x1.shape[1]
+        bound_ms, bound_by = bound(4 * (k * n + 2 * k * k + k),
+                                   {"float32": 4 * k * k * n})
+        times[f"k{k}"] = {
+            "k": k, "n": n, "gx_rel_err": gx_err, "gsum_rel_err": gsum_err,
+            "grade_vs_float64": grade,
+            "ms": device_ms(lambda: k6.ica_sums(w, x1, "logcosh"), 20),
+            "plain_ms": device_ms(
+                lambda: k6._ica_sums_plain(w, x1, "logcosh"), 20),
+            "issue_ms": cuda_ms(lambda: k6.ica_sums(w, x1, "logcosh"), 20),
+            "plain_issue_ms": cuda_ms(
+                lambda: k6._ica_sums_plain(w, x1, "logcosh"), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        del w, x1
+    before = k6.launches
+    model = ctx.api.FastIca(seed=SEED, device=CUDA).fit(ica32_data(ctx.dev))
+    fit_launches = k6.launches - before
+    require(fit_launches == model.n_iter_
+            and model.last_fit_stats_.extra["ica_sums_kernel_calls"]
+            == model.n_iter_,
+            f"K6: {fit_launches} launches in a {model.n_iter_}-step fit")
+    ctx.add_launches({"ica_sums": fit_launches})
+    ctx.kernels["ica_sums"].update(
+        max_abs_err=err_max,
+        library_ms=times[f"k{KI}"]["plain_ms"],
+        **{key: times[f"k{KI}"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return {"phase": "k6_vs_plain", "band": K6_BAND, "times": times,
+            "fit": {"n_iter": model.n_iter_, "launches": fit_launches,
+                    "fit_ms": model.last_fit_stats_.wall_time_s * 1e3}}
 
 
 # K5's shapes: the in-core cell's X and one stream chunk, at the north
@@ -3254,7 +3358,7 @@ PHASES = (phase_k1, phase_slice, phase_default, phase_pca_f64,
           phase_pca_f32_wide, phase_randomized_f64, phase_gram_recovery_f64,
           phase_randomized_complex, phase_serialize, phase_native_offload,
           phase_nan_debugging, phase_fast_ica_config3, phase_fast_ica_card_vs_cpu,
-          phase_k4, phase_k5,
+          phase_k4, phase_k6, phase_k5,
           phase_stream_north_star, phase_stream_exact,
           phase_stream_randomized_f64, phase_partial_fit,
           phase_stream_fast_ica, phase_mesh_one_card, phase_mesh_shards,
@@ -3268,6 +3372,8 @@ KERNELS = {
                    "while_loop)"),
     "gram_syrk": ("gram_syrk.cu", "none (the Gram finder's XᵀX, an XLA "
                   "product in the JAX package)"),
+    "ica_sums": ("ica_sums.cu", "none (XLA ops in the JAX package's "
+                 "while_loop)"),
 }
 
 
@@ -3280,6 +3386,7 @@ def context():
     from petal_decomposition_tpu_torch.ops import linalg
     from petal_decomposition_tpu_torch.ops.kernels import (
         gram_syrk as k5,
+        ica_sums as k6,
         ica_update as k4,
         jacobi_f64_kernel as k3,
         jacobi_kernels as k2,
@@ -3292,15 +3399,16 @@ def context():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
-        for done in [pool.submit(m.build) for m in (k1, k2, k3, k4, k5)]:
+    with ThreadPoolExecutor(6) as pool:
+        for done in [pool.submit(m.build) for m in (k1, k2, k3, k4, k5, k6)]:
             done.result()
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "kernel_build_s": time.perf_counter() - t0})
     ctx = SimpleNamespace(
-        api=api, linalg=linalg, k1=k1, k2=k2, k3=k3, k4=k4, k5=k5, smi=smi,
+        api=api, linalg=linalg, k1=k1, k2=k2, k3=k3, k4=k4, k5=k5, k6=k6,
+        smi=smi,
         dev=torch.device(CUDA), k2_cases={}, k3_cases={},
         kernels={name: {"launches": 0} for name in KERNELS},
     )

@@ -140,19 +140,22 @@ def n_rows(x) -> int:
 def record(model, n: int, d: int, device, mesh=None):
     """:func:`..utils.profiling.record_fit`; the fit's ``extra`` gains
     ``gram_kernel_calls``, the Grams K5 computed in it
-    (:mod:`..ops.kernels.gram_syrk`), and a mesh fit's its share of the
-    process's collectives, ``collective_calls`` and ``collective_bytes``."""
-    from ..ops.kernels import gram_syrk
+    (:mod:`..ops.kernels.gram_syrk`), ``ica_sums_kernel_calls``, the
+    FastICA step sums K6 computed in it (:mod:`..ops.kernels.ica_sums`),
+    and a mesh fit's its share of the process's collectives,
+    ``collective_calls`` and ``collective_bytes``."""
+    from ..ops.kernels import gram_syrk, ica_sums
     from ..parallel.distributed import collectives
     from ..utils.profiling import record_fit
 
     with record_fit(model, n, d, device) as stats:
-        grams = gram_syrk.calls
+        grams, sums = gram_syrk.calls, ica_sums.calls
         calls, nbytes = collectives.calls, collectives.bytes
         try:
             yield stats
         finally:
             stats.extra["gram_kernel_calls"] = gram_syrk.calls - grams
+            stats.extra["ica_sums_kernel_calls"] = ica_sums.calls - sums
             if mesh is not None:
                 stats.extra["collective_calls"] = collectives.calls - calls
                 stats.extra["collective_bytes"] = collectives.bytes - nbytes

@@ -18,11 +18,14 @@ decorrelation of the random W₀, the re-orthonormalization between the
 ``iteration_precision="f32"`` stages and every in-loop decorrelation
 under ``decorrelation="eigh"``) run the hand-written K3 kernel through
 ``ops.linalg.eigh_psd_jit_cert``, and the float32 SVD whitening of a
-tall panel runs Householder QR and K2 on R through ``ops.jacobi``.  The
-two k×n products of a step are cuBLAS matmuls, as they are XLA ops in
-the JAX package.  A float32 step under Newton–Schulz decorrelation runs
-the rest of its update — the update formula, the decorrelation and the
-stop value — as one launch of the hand-written K4
+tall panel runs Householder QR and K2 on R through ``ops.jacobi``.  A
+float32 step's sums over X₁ — both k×n products, the contrast and the
+g′ row sums, XLA ops in the JAX package — are one launch of the
+hand-written K6 (``ops/kernels/ica_sums.py``) where it takes W and X₁
+(k ≤ 128), and IEEE-float32 matmuls with PyTorch's elementwise kernels
+elsewhere.  A float32 step under Newton–Schulz decorrelation runs the
+rest of its update — the update formula, the decorrelation and the stop
+value — as one launch of the hand-written K4
 (``ops/kernels/ica_update.py``) where it takes W (:func:`_k4_takes`).
 
 Where the JAX package runs the whole iteration as one on-device
@@ -49,7 +52,7 @@ from ..config import config as _config
 from ..errors import InvalidInput, LinalgError
 from ..ops import linalg as _linalg
 from ..ops import splitmm
-from ..ops.kernels import ica_update
+from ..ops.kernels import ica_sums, ica_update
 from ..ops.linalg import mdot
 from ..parallel.mesh import Columns, Rows
 from ..utils import rng as rng_util
@@ -201,13 +204,22 @@ def _sums(w, xs, part):
         return out[:, :-1], out[:, -1]
 
 
+def _block_sums(w, x, fun: str):
+    """``(G·Xᵀ, g′ row sums)`` of one block of X₁: one launch of K6 where
+    it takes ``w`` and ``x`` (:func:`..ops.kernels.ica_sums.supports`),
+    else the two products around the contrast."""
+    if ica_sums.supports(w, x):
+        return ica_sums.ica_sums(w, x, fun)
+    gwtx, gsum = _contrast_sums(fun, mdot(w, x))  # ica.rs:332
+    return mdot(gwtx, x.mT), gsum
+
+
 def _step(w, xs, fun: str, decorr, p_inv: float, pad_g0: float = 0.0):
     """One fixed-point update of W on the rows of ``xs`` (a tensor, or
     the column blocks of a mesh): ``(W1, lim)``.  ``p_inv`` is 1/n;
     ``pad_g0`` the g′ row-sum share of padded columns."""
     def part(wd, x):
-        gwtx, gsum = _contrast_sums(fun, mdot(wd, x))  # ica.rs:332
-        return mdot(gwtx, x.mT), gsum
+        return _block_sums(wd, x, fun)
 
     return _update(w, *_sums(w, xs, part), decorr, p_inv, pad_g0)
 
