@@ -686,7 +686,8 @@ def phase_slice(ctx):
 
 @phase
 def phase_default(ctx):
-    """The default constructor: zero-pass route, no kernel."""
+    """The default constructor: zero-pass route, no kernel; its Gram on
+    the IEEE matmul, as d = 1024 is below K5's ``MIN_D``."""
     import torch
 
     k1, k2 = ctx.k1, ctx.k2
@@ -696,6 +697,11 @@ def phase_default(ctx):
     for _ in range(3):
         dm = ctx.api.RandomizedPca(K, seed=SEED, device=CUDA).fit(ctx.x)
         default_ms.append(dm.last_fit_stats_.wall_time_s * 1e3)
+    extra = dm.last_fit_stats_.extra
+    grams = {"matmul": extra["gram_matmul_calls"],
+             "gram_syrk": extra["gram_kernel_calls"]}
+    require(grams == {"matmul": 1, "gram_syrk": 0},
+            f"default fit's Grams {grams}, not one on the matmul")
     s_def = dm.singular_values_.double()
     require(bool(torch.isfinite(s_def).all()), "default fit σ not finite")
     sigma = ctx.slice_sigma
@@ -706,7 +712,7 @@ def phase_default(ctx):
     return {"phase": "default_route", "route": "zero-pass Gram recovery",
             "fit_ms": default_ms,
             "fit_ms_median": statistics.median(default_ms),
-            "sigma_rel_vs_slice": def_rel,
+            "sigma_rel_vs_slice": def_rel, "grams_per_fit": grams,
             "launches": {"sketch_moments": k1.launches,
                          "jacobi_svd": k2.launches}}
 

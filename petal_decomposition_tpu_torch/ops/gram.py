@@ -4,8 +4,10 @@ written once.
 :func:`gram` makes every Gram of the port: K5
 (:mod:`.kernels.gram_syrk`, 3×TF32 with float32 chunk sums) where
 ``gram_syrk.supports`` takes the matrix, else the IEEE float32 matmul
-(:func:`.linalg.ieee_f32`); float64 stays float64.  Every grade runs
-that arithmetic.  The grade names (``"default"``, ``"high"``,
+(:func:`.linalg.ieee_f32`); float64 stays float64.  ``matmul_calls``
+counts the Grams the matmul made, as ``gram_syrk.calls`` counts K5's,
+so each Gram is counted once by one of the two.  Every grade runs that
+arithmetic.  The grade names (``"default"``, ``"high"``,
 ``"highest"``, and ``"auto"``, which :func:`resolve` turns into one of
 them) still select three things:
 
@@ -22,8 +24,8 @@ import torch
 from .kernels import gram_syrk
 from .linalg import ieee_f32
 
-__all__ = ["GRADES", "gram", "check", "resolve", "guard_rmax",
-           "k1_allowed", "carry_dtype"]
+__all__ = ["GRADES", "gram", "matmul_calls", "check", "resolve",
+           "guard_rmax", "k1_allowed", "carry_dtype"]
 
 GRADES = ("default", "high", "highest")
 
@@ -32,12 +34,17 @@ GRADES = ("default", "high", "highest")
 # explicitly centered copy (a stream, which cannot, raises).
 _GUARD_RMAX = {"default": 2.0, "high": 1e3, "highest": 1e5}
 
+matmul_calls = 0
+
 
 def gram(x: torch.Tensor) -> torch.Tensor:
     """``xᵀx``: K5 where :func:`.kernels.gram_syrk.supports` holds, else
-    the IEEE float32 matmul (float64 ``x`` stays float64)."""
+    the IEEE float32 matmul (float64 ``x`` stays float64), counted in
+    ``matmul_calls``."""
+    global matmul_calls
     if gram_syrk.supports(x):
         return gram_syrk.gram_syrk(x)
+    matmul_calls += 1
     with ieee_f32():
         return x.mT @ x
 
